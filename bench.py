@@ -3,18 +3,21 @@
 Prints ONE JSON line:
   {"metric": "...", "value": N, "unit": "...", "vs_baseline": N, ...}
 
-Baseline target (BASELINE.md): >= 250 Mpix/s fwd+bwd per chip at 1080p on a
-1M-gaussian scene. Mpix/s = (H * W) / seconds per full forward+backward step.
+Runs on one GPU and exits non-zero without one. Lines before the JSON
+line name the device (platform, device kind, count) and the card's name
+and power limit. Mpix/s = (H * W) / seconds per full forward+backward
+step on a 1M-gaussian, 1080p scene; ``vs_baseline`` divides it by the
+250 Mpix/s target of BASELINE.md.
 
 The default run measures ONLY the headline step (fwd+bwd on the standard
-~2.6-fragments/gaussian cloud) so a cold run fits the driver's timeout;
-`--full` additionally reports a fwd-only split and a heavy scene with
-realistic capture-like overlap (>= 8 fragments/gaussian), so regressions
-are attributable and the number is honest on dense scenes.
+~2.6-fragments/gaussian cloud); `--full` additionally reports a fwd-only
+split and a heavy scene with capture-like overlap (>= 8
+fragments/gaussian).
 """
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 
@@ -23,12 +26,12 @@ import numpy as np
 BASELINE_MPIX_S = 250.0
 
 
-def synthetic_scene(n, seed=0, spread=3.0, scale_lo=0.004, scale_hi=0.012):
-    """A 1080p-friendly cloud: ~few-pixel splats spread over the frustum."""
-    import jax.numpy as jnp
+def synthetic_gaussians(n, seed=0, spread=3.0, scale_lo=0.004,
+                        scale_hi=0.012):
+    """A 1080p-friendly cloud: ~few-pixel splats spread over the frustum.
 
-    from wgpu_3dgs_core_tpu.ops.transforms import cov3d_from_rot_scale
-
+    Returns numpy (means, quats, scales, color, opacity, sh).
+    """
     rng = np.random.default_rng(seed)
     means = np.empty((n, 3), np.float32)
     means[:, 0] = rng.uniform(-spread, spread, n)
@@ -37,11 +40,23 @@ def synthetic_scene(n, seed=0, spread=3.0, scale_lo=0.004, scale_hi=0.012):
     q = rng.normal(size=(n, 4)).astype(np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
     scales = rng.uniform(scale_lo, scale_hi, (n, 3)).astype(np.float32)
+    color = rng.random((n, 3)).astype(np.float32)
+    opac = (0.2 + 0.7 * rng.random(n)).astype(np.float32)
+    sh = (0.1 * rng.normal(size=(n, 15, 3))).astype(np.float32)
+    return means, q, scales, color, opac, sh
+
+
+def synthetic_scene(n, seed=0, **kw):
+    """:func:`synthetic_gaussians` as render() arrays
+    (means, cov6, color, opacity, sh)."""
+    import jax.numpy as jnp
+
+    from wgpu_3dgs_core_tpu.ops.transforms import cov3d_from_rot_scale
+
+    means, q, scales, color, opac, sh = synthetic_gaussians(n, seed, **kw)
     cov6 = cov3d_from_rot_scale(jnp.asarray(q), jnp.asarray(scales))
-    color = jnp.asarray(rng.random((n, 3)), jnp.float32)
-    opac = jnp.asarray(0.2 + 0.7 * rng.random(n), jnp.float32)
-    sh = jnp.asarray(0.1 * rng.normal(size=(n, 15, 3)), jnp.float32)
-    return jnp.asarray(means), cov6, color, opac, sh
+    return (jnp.asarray(means), cov6, jnp.asarray(color), jnp.asarray(opac),
+            jnp.asarray(sh))
 
 
 def heavy_scene(n, seed=1):
@@ -54,39 +69,28 @@ def main():
     parser.add_argument("--gaussians", type=int, default=1_000_000)
     parser.add_argument("--width", type=int, default=1920)
     parser.add_argument("--height", type=int, default=1080)
-    # Capacity sized to the scene: with the exact row-trimmed binning
-    # (round 5) the headline cloud measures exactly 2,639,616 live
-    # fragments / 1,640,960 rows, the heavy scene 5,992,448 / 2,516,992 —
-    # so 2.96M / 7.32M fragments give ~1.12x / 1.22x headroom at 1M
-    # gaussians (measure_max_fragments / measure_max_rows). Every
-    # fragment-scale op (sort, masking, schedule) costs proportional to
-    # this STATIC capacity, not the live count — oversizing it is pure
-    # overhead (r4: 4.2M -> 3.28M saved ~10 ms/step of sort/mask work).
-    # Overflow is checked every run and reported in the JSON line; a
-    # production caller sizes this to its scene the same way.
+    # Capacity sized to the scene: the exact row-trimmed binning gives the
+    # headline cloud 2,639,616 live fragments / 1,640,960 rows and the
+    # heavy scene 5,992,448 / 2,516,992, so these defaults leave ~1.12x /
+    # 1.22x headroom (measure_max_fragments / measure_max_rows size them
+    # the same way). Every fragment-scale op costs in proportion to this
+    # STATIC capacity, not the live count. Overflow is checked every run
+    # and reported in the JSON line.
     parser.add_argument("--max-fragments", type=int, default=2_957_312)
     parser.add_argument("--heavy-max-fragments", type=int, default=7_311_360)
     parser.add_argument("--max-rows", type=int, default=1_887_232)
     parser.add_argument("--heavy-max-rows", type=int, default=2_894_848)
-    # Tile-padding headroom (worst case 1.0 = one partial chunk per tile;
-    # the expectation on any real scene is half that). 0.65 shrinks the
-    # backward reorder sort ~8% at zero risk: truncation, if a
-    # pathological scene ever hit it, is surfaced as overflow below.
-    parser.add_argument("--pad-slack", type=float, default=0.65)
     parser.add_argument("--iters", type=int, default=10)
     parser.add_argument("--warmup", type=int, default=2)
     parser.add_argument("--sh-deg", type=int, default=3)
-    parser.add_argument("--chunk", type=int, default=None)
     parser.add_argument("--small", action="store_true",
                         help="tiny config for smoke testing")
-    # The driver runs plain `python bench.py` under a hard timeout; each
-    # extra jit signature costs 4-10 min of remote compile on a cold cache
-    # (round 2 timed out at rc=124 with zero output). So the default run
-    # measures ONLY the headline step; the fwd-only split and heavy-overlap
-    # scene are opt-in diagnostics.
+    # Each extra jit signature adds a cold compile, so the default run
+    # measures ONLY the headline step; the fwd-only split and the
+    # heavy-overlap scene are opt-in diagnostics.
     parser.add_argument("--full", action="store_true",
                         help="also measure fwd-only split and heavy scene "
-                             "(2 extra jit signatures, slow cold-compile)")
+                             "(2 extra jit signatures)")
     args = parser.parse_args()
 
     if args.small:
@@ -98,21 +102,29 @@ def main():
         args.heavy_max_rows = 262_144
         args.iters, args.warmup = 3, 1
 
-    import os
-
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          "/root/repo/.jax_cache")
+    # The card's name and power limit, read before JAX opens the card.
+    try:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError) as e:
+        sys.exit(f"bench: no GPU (nvidia-smi: {e})")
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"bench: JAX found no GPU (platform {dev.platform!r})")
+    print(f"device: platform {dev.platform}, kind {dev.device_kind}, "
+          f"count {len(jax.devices())}", flush=True)
+    print(f"card: {card}", flush=True)
     import jax.numpy as jnp
 
     from wgpu_3dgs_core_tpu import Camera, render
-    from wgpu_3dgs_core_tpu.render.renderer import DEFAULT_CHUNK
+    from wgpu_3dgs_core_tpu.utils.compile_cache import enable_compile_cache
 
-    chunk = args.chunk or DEFAULT_CHUNK
+    enable_compile_cache()
     cam = Camera.look_at(
         eye=(0.0, 0.0, -6.0), target=(0.0, 0.0, 0.0),
         width=args.width, height=args.height, fov_y=0.9,
@@ -125,7 +137,7 @@ def main():
             res = render(
                 means, cov6, color, opac, cam, sh=sh, sh_deg=args.sh_deg,
                 background=(0.0, 0.0, 0.0), max_fragments=max_fragments,
-                chunk=chunk, pad_slack=args.pad_slack, max_rows=max_rows,
+                max_rows=max_rows,
             )
             return jnp.mean((res.image - target) ** 2), res.overflow
 
@@ -138,8 +150,8 @@ def main():
 
         return step
 
-    # Sync via device-to-host materialization: on some remote platforms
-    # block_until_ready returns before execution finishes.
+    # Device-to-host copy of one element: waits for every program
+    # enqueued before it (they execute in order).
     def sync(x):
         return float(np.asarray(x))
 
@@ -171,8 +183,7 @@ def main():
             res = render(
                 means, cov6, color, opac, cam, sh=sh, sh_deg=args.sh_deg,
                 background=(0.0, 0.0, 0.0),
-                max_fragments=args.max_fragments, chunk=chunk,
-                pad_slack=args.pad_slack, max_rows=args.max_rows,
+                max_fragments=args.max_fragments, max_rows=args.max_rows,
             )
             return jnp.mean((res.image - target) ** 2)
 
@@ -193,6 +204,9 @@ def main():
     print(
         json.dumps(
             {
+                "device": {"platform": dev.platform,
+                           "kind": dev.device_kind,
+                           "count": len(jax.devices())},
                 "metric": "fwd+bwd render throughput "
                 f"({args.height}p, {args.gaussians} gaussians, "
                 f"sh_deg={args.sh_deg})",

@@ -21,10 +21,14 @@ from wgpu_3dgs_core_tpu import (  # noqa: E402
     read_ply,
     render_gaussians,
 )
+from wgpu_3dgs_core_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
 from wgpu_3dgs_core_tpu.render.train import fit  # noqa: E402
 
 
 def main():
+    enable_compile_cache()
     steps = int(sys.argv[1]) if len(sys.argv) > 1 else 100
     soa = GaussianSoA.from_ply(
         read_ply(os.path.join(os.path.dirname(__file__), "model.ply"))

@@ -18,9 +18,13 @@ from wgpu_3dgs_core_tpu import (  # noqa: E402
     read_ply,
     render_gaussians,
 )
+from wgpu_3dgs_core_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache,
+)
 
 
 def main():
+    enable_compile_cache()
     path = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         os.path.dirname(__file__), "model.ply"
     )

@@ -199,7 +199,7 @@ def test_download_helper_and_error():
     )
 
     # The reference's failed-map path (src/error.rs:56-63): a deleted
-    # device buffer is the TPU analog of an unmappable staging buffer.
+    # device buffer is the JAX analog of an unmappable staging buffer.
     arr2 = jnp.arange(4, dtype=jnp.float32) + 1.0
     arr2.delete()
     with pytest.raises(DownloadBufferError):

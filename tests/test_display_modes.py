@@ -1,11 +1,11 @@
 """GaussianTransform knob tests: size, max_std_dev cutoff, display modes
 (the renderer-side semantics for reference: src/buffer/gaussian_transform.rs).
 
-Image parity atol is 3e-5: the tiled kernel's per-chunk blending regroups
-the f32 transmittance recurrence (and the has_frags work-skip gate changes
-fusion order inside the lax.cond body), so individual pixels can move a
-few e-6 relative to the brute-force reference; pixels sitting exactly on a
-blend threshold (T ~ T_MIN) can move ~1e-5."""
+Image parity atol is 3e-5: the tiled kernel's per-batch blending regroups
+the f32 transmittance recurrence (a log-domain cumsum instead of the
+reference's running product), so individual pixels can move a few e-6
+relative to the brute-force reference; pixels sitting exactly on a blend
+threshold (T ~ T_MIN) can move ~1e-5."""
 
 import numpy as np
 import pytest

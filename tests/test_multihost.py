@@ -33,7 +33,7 @@ def test_two_process_distributed_render():
     # The workers bring up their own distributed runtime; scrub any
     # inherited coordination state.
     for k in list(env):
-        if k.startswith(("JAX_COORDINATOR", "TPU_")):
+        if k.startswith("JAX_COORDINATOR"):
             env.pop(k)
 
     procs = [

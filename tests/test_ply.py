@@ -172,7 +172,7 @@ def test_ply_binary_list_property_truncated_errors():
 
 def test_ply_binary_list_negative_count_errors():
     """A corrupt signed list count must raise, not walk ``off`` backward
-    and silently misparse the rest of the body (ADVICE r4)."""
+    and silently misparse the rest of the body."""
     buf = io.BytesIO()
     buf.write(b"ply\nformat binary_little_endian 1.0\n")
     buf.write(b"element vertex 2\n")

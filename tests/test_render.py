@@ -100,12 +100,10 @@ def test_gradients_match_reference_autodiff():
 
 
 def test_gradients_saturating_scene():
-    """Regression (round-2 advisor, high): a dense opaque scene saturates
-    tiles past their first chunk, firing the backward kernel's early-out.
-    The gid key row must still be written for every live fragment — a
-    missing key shifts every later gaussian's segment in the sort +
-    analytic-offset reduction and misattributes gradients across unrelated
-    gaussians (was 100% normalized error; must be ~1e-7)."""
+    """A dense opaque scene saturates tiles after a few fragments, firing
+    the blend kernels' early exit: the fragments behind the saturation
+    point must get exactly zero gradient rows, and every other gradient
+    must still reach its own gaussian."""
     n = 300
     rng = np.random.default_rng(7)
     means = jnp.asarray(
@@ -150,16 +148,14 @@ def test_gradients_saturating_scene():
 
 
 def test_overflow_zeroes_gradients():
-    """Regression (round-2 advisor, medium): on fragment-capacity overflow
-    the truncated stream no longer matches the analytic segment offsets;
-    the backward must return exactly zero rather than scrambled
-    cross-gaussian gradients."""
+    """On fragment-capacity overflow the forward image misses fragments,
+    so the backward must return exactly zero rather than the gradients of
+    an arbitrary subset of the scene."""
     means, quats, scales, color, opac, _ = _random_scene(n=50, seed=5)
     cov6 = cov3d_from_rot_scale(quats, scales * 10.0)  # huge splats
 
     def loss(color, opac):
-        res = render(means, cov6, color, opac, CAM, max_fragments=256,
-                     chunk=256)
+        res = render(means, cov6, color, opac, CAM, max_fragments=256)
         return jnp.sum(res.image), res.overflow
 
     (_, overflow), grads = jax.value_and_grad(
@@ -188,8 +184,7 @@ def test_transmittance_gradient():
 def test_overflow_flag():
     means, quats, scales, color, opac, _ = _random_scene(n=50, seed=5)
     cov6 = cov3d_from_rot_scale(quats, scales * 10.0)  # huge splats
-    res = render(means, cov6, color, opac, CAM, max_fragments=256,
-                 chunk=256)
+    res = render(means, cov6, color, opac, CAM, max_fragments=256)
     assert bool(res.overflow)
 
 
@@ -294,9 +289,9 @@ def test_render_jit_compatible():
 
 
 def test_render_single_chunk_capacity():
-    """Regression: a fragment stream whose last tile ends inside the final
-    chunk must not be shifted by the repack slice clamp (f_cap == chunk is
-    the extreme case — every block slice starts in the last chunk)."""
+    """A stream capacity of a few batches, whose last tile ends inside
+    the final batch, renders exactly (the kernels read past a tile's end
+    only through masked lanes)."""
     means, quats, scales, color, opac, sh = _random_scene(12, seed=5)
     cov6 = cov3d_from_rot_scale(quats, scales)
     res = render(means, cov6, color, opac, CAM, sh=sh, sh_deg=3,
@@ -309,13 +304,11 @@ def test_render_single_chunk_capacity():
 
 
 def test_forward_opaque_chain_precision():
-    """Pin the split-bf16 cumsum's worst case (ops/rasterize.py _tri_dot):
-    stacked alpha-0.99 fragments make every log1p(-alpha) term -4.6, the
-    largest magnitudes the transmittance cumsum ever sums, so bf16 hi+lo
-    representation error (~2^-18 per term) accumulates fastest here. The
-    blended image must stay within ~1e-4 relative of the reference
-    renderer (analysis bound: |ecs| <= ln(1/T_MIN) ~ 9.2 wherever T is
-    live => relative T error <= ~9.2 * 2^-18 ~ 3.5e-5)."""
+    """The transmittance cumsum's worst case: stacked alpha-0.99
+    fragments make every log1p(-alpha) term -4.6, the largest magnitudes
+    the per-batch cumsum ever sums, so its f32 rounding accumulates
+    fastest here. The blended image must stay within ~1e-4 of the
+    reference renderer."""
     n = 120
     rng = np.random.default_rng(11)
     means = jnp.asarray(
@@ -341,8 +334,8 @@ def test_forward_opaque_chain_precision():
 
 def test_reference_pixel_window_matches_full():
     """pixel_window crop == the same crop of the full reference render,
-    including with a traced origin (the chunked bench-shape parity tool
-    jits one signature over row offsets — tools/grad_parity_tpu.py)."""
+    including with a traced origin (the full-size parity phase of
+    chip_smoke.py crops the reference to a window of a 1080p camera)."""
     means, quats, scales, color, opac, sh = _random_scene(40, seed=5)
     cov6 = cov3d_from_rot_scale(quats, scales)
     full = np.asarray(

@@ -1,12 +1,11 @@
-"""Exact row-trimmed binning (round 5).
+"""Exact row-trimmed binning.
 
 The two-level expansion (gaussians -> bbox tile rows -> exact per-row
-x-intervals) must (a) produce bit-identical streams on the Pallas and XLA
-paths, (b) only ever SHRINK the bbox stream (image-exactness is pinned by
-the renderer parity tests in test_render.py), (c) agree exactly with the
-count_fragments_exact dry pass used to size capacities, and (d) keep
-every live fragment of the support ellipse: each culled tile contains no
-pixel with q <= Q = min(cutoff^2, 2 ln(255 op_eff)).
+x-intervals) must (a) only ever SHRINK the bbox stream (image-exactness is
+pinned by the renderer parity tests in test_render.py), (b) agree exactly
+with the count_fragments_exact dry pass used to size capacities, and (c)
+keep every live fragment of the support ellipse: each culled tile contains
+no pixel with q <= Q = min(cutoff^2, 2 ln(255 op_eff)).
 """
 
 import numpy as np
@@ -57,34 +56,10 @@ def _scene(n=2500, seed=3):
     return spl, attr
 
 
-def test_pallas_xla_streams_bit_identical():
-    spl, attr = _scene()
-    tx, ty = num_tiles(W, H)
-    kw = dict(tiles_x=tx, tiles_y=ty, max_fragments=8192)
-    sa, attrs_a, _ = bin_splats_attrs(
-        spl.xy, spl.extent, spl.depth, spl.mask, attr,
-        expand_impl="pallas", **kw,
-    )
-    sb, attrs_b, _ = bin_splats_attrs(
-        spl.xy, spl.extent, spl.depth, spl.mask, attr,
-        expand_impl="xla", **kw,
-    )
-    assert int(sa.num_fragments) == int(sb.num_fragments)
-    np.testing.assert_array_equal(np.asarray(sa.tile_id),
-                                  np.asarray(sb.tile_id))
-    np.testing.assert_array_equal(np.asarray(sa.gauss_id),
-                                  np.asarray(sb.gauss_id))
-    np.testing.assert_array_equal(np.asarray(attrs_a), np.asarray(attrs_b))
-    np.testing.assert_array_equal(np.asarray(sa.tile_start),
-                                  np.asarray(sb.tile_start))
-    np.testing.assert_array_equal(np.asarray(sa.tile_end),
-                                  np.asarray(sb.tile_end))
-
-
 def test_trim_is_subset_of_bbox_and_counts_agree():
     spl, attr = _scene()
     tx, ty = num_tiles(W, H)
-    st, _, _ = bin_splats_attrs(
+    st, _ = bin_splats_attrs(
         spl.xy, spl.extent, spl.depth, spl.mask, attr,
         tiles_x=tx, tiles_y=ty, max_fragments=8192,
     )
@@ -112,7 +87,7 @@ def test_no_blendable_pixel_culled():
     tile the trimmed stream kept for that gaussian."""
     spl, attr = _scene(n=300, seed=7)
     tx, ty = num_tiles(W, H)
-    st, attrs_sorted, _ = bin_splats_attrs(
+    st, _ = bin_splats_attrs(
         spl.xy, spl.extent, spl.depth, spl.mask, attr,
         tiles_x=tx, tiles_y=ty, max_fragments=8192,
     )
@@ -162,7 +137,7 @@ def test_exact_radii_below_extent():
 def test_overflow_flags_row_truncation():
     spl, attr = _scene()
     tx, ty = num_tiles(W, H)
-    st, _, _ = bin_splats_attrs(
+    st, _ = bin_splats_attrs(
         spl.xy, spl.extent, spl.depth, spl.mask, attr,
         tiles_x=tx, tiles_y=ty, max_fragments=8192, max_rows=512,
     )

@@ -137,7 +137,7 @@ def test_sharded_two_devices():
 
 def test_sharded_transform_knobs_match_single_device():
     """Feature parity: size/max_std_dev/display_mode/no_sh0/model_transform
-    behave identically sharded and single-device (VERDICT r2 item 6)."""
+    behave identically sharded and single-device."""
     from wgpu_3dgs_core_tpu import GaussianDisplayMode
 
     means, cov6, color, opac, sh = _scene(48, seed=7)
@@ -190,7 +190,7 @@ def test_sharded_route_capacity_overflow_flagged():
 def test_route_to_strips_counts_and_order():
     """Routing compaction: per-strip buckets hold exactly the overlapping
     splats, in source order, zero-padded; per-device post-exchange work is
-    O(N/D * skew) by construction (VERDICT r2 item 5)."""
+    O(N/D * skew) by construction."""
     from wgpu_3dgs_core_tpu.parallel.sharded import _route_to_strips
 
     n, d, cap = 16, 4, 8
@@ -213,8 +213,7 @@ def test_route_to_strips_counts_and_order():
 
 def test_sharded_one_device_matches_single():
     """D=1 sharding must be a near-no-op: the identity routing shortcut
-    keeps output parity with the plain renderer (and the hardware D=1
-    overhead evidence honest — tools/scaling_efficiency.py --tpu)."""
+    keeps output parity with the plain renderer."""
     means, cov6, color, opac, _ = _scene(24, seed=9)
     mesh = make_mesh(1)
     res = render_sharded(means, cov6, color, opac, CAM, mesh, background=BG)

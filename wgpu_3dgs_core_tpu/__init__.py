@@ -1,9 +1,9 @@
-"""wgpu_3dgs_core_tpu — TPU-native 3D Gaussian splatting framework.
+"""wgpu_3dgs_core_tpu — JAX 3D Gaussian splatting framework for NVIDIA GPUs.
 
 Brand-new JAX/XLA/Pallas implementation with the capabilities of the
 wgpu-3dgs-core Rust crate (file formats, gaussian IR, quantized layouts,
 device math library, kernel dispatch) plus the differentiable forward +
-backward splat renderer built on top, sharded across TPU meshes.
+backward splat renderer built on top, sharded across device meshes.
 
 Everything is re-exported flat from the package root, mirroring the
 reference's flat crate root (reference: src/lib.rs:11-20).

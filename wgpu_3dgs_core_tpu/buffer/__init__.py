@@ -1,6 +1,6 @@
 """Device buffer layer: gaussian storage and uniform-style transform state.
 
-TPU-native redesign of the reference's L3 GPU buffer layer
+JAX redesign of the reference's L3 GPU buffer layer
 (reference: src/buffer/). wgpu storage buffers become jnp device arrays in a
 packed SoA; uploads are `jnp.asarray` (device_put), downloads are
 `jax.device_get`, and `update_range` is a donated `.at[slice].set`. Uniform
@@ -40,7 +40,7 @@ def download(array) -> np.ndarray:
     (reference: src/buffer/mod.rs:27-101).
 
     The reference's async map can fail (channel/poll errors,
-    src/error.rs:56-63); the TPU analogs are a deleted/donated device
+    src/error.rs:56-63); the JAX analogs are a deleted/donated device
     buffer or a dead remote device — surfaced uniformly as
     :class:`DownloadBufferError`.
     """

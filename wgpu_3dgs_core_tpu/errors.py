@@ -1,6 +1,6 @@
 """Typed error hierarchy.
 
-TPU-native analog of the reference's thiserror enums (reference:
+JAX analog of the reference's thiserror enums (reference:
 src/error.rs:1-143). Each Rust enum becomes an exception class; enum variants
 become subclasses or structured fields so tests can assert on them the same
 way the reference's tests match on variants.

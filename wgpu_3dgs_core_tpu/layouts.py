@@ -1,6 +1,6 @@
 """Quantized gaussian storage layouts (the 12 SH x cov3d configs).
 
-TPU-native redesign of the reference's compile-time config system
+JAX redesign of the reference's compile-time config system
 (reference: src/gaussian_config.rs + src/buffer/gaussian.rs:231-384).
 The Rust crate encodes each combination as a distinct `#[repr(C)]` POD
 struct selected by trait generics, with matching WESL feature flags picking
@@ -11,7 +11,7 @@ the shader variant. Here a layout is a frozen dataclass value that
   as a static argument re-specializes the compiled kernel — the analog of
   WESL ``@if(feature)`` conditional compilation).
 
-On TPU the packed representation stays SoA (one array per field) rather than
+On the device the packed representation stays SoA (one array per field) rather than
 an interleaved byte struct: XLA/VPU want contiguous per-field lanes, and
 dtype conversion (f16/i8 -> f32) is a hardware cast, not bit juggling.
 """

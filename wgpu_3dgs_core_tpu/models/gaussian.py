@@ -1,4 +1,4 @@
-"""Canonical gaussian intermediate representation, TPU-first (SoA).
+"""Canonical gaussian intermediate representation, columnar (SoA).
 
 Redesign of the reference's AoS ``Gaussian`` / ``Gaussians`` layer
 (reference: src/gaussian.rs). The canonical IR is a structure-of-arrays

@@ -1,6 +1,6 @@
 """PLY source format: Inria-format 3D Gaussian splatting point clouds.
 
-TPU-native redesign of the reference's PLY layer (reference:
+JAX redesign of the reference's PLY layer (reference:
 src/source_format/ply.rs). Instead of a per-gaussian POD struct iterated one
 record at a time, this module parses the whole file into a columnar (SoA)
 numpy representation in bulk:

@@ -1,6 +1,6 @@
 """SPZ source format: Niantic's gzip-compressed, quantized gaussian format.
 
-TPU-native redesign of the reference's SPZ layer (reference:
+JAX redesign of the reference's SPZ layer (reference:
 src/source_format/spz.rs). The file is gzip-wrapped (spz.rs:945-959), with a
 16-byte header (spz.rs:436-446) followed by columnar arrays in file order
 positions → alphas → colors → scales → rotations → SHs (spz.rs:739-771).

@@ -1,9 +1,10 @@
 """Kernel bundle: the compute-dispatch abstraction (L5).
 
-TPU-native redesign of the reference's ComputeBundle/ComputeBundleBuilder
+Redesign of the reference's ComputeBundle/ComputeBundleBuilder
 (reference: src/compute_bundle.rs). The WESL->WGSL compile + pipeline +
 bind-group machinery becomes a thin, validated launcher around
-``pl.pallas_call`` for 1D map-style kernels over N items:
+``pl.pallas_call`` (Triton route on the GPU) for 1D map-style kernels over
+N items:
 
 - bind group layouts        -> ResourceGroupLayout arity validation
 - WESL feature flags        -> a hashable static ``config`` partial-applied
@@ -15,8 +16,11 @@ bind-group machinery becomes a thin, validated launcher around
 - dispatch(encoder, count)  -> dispatch(count) returning jnp outputs
 
 Kernels are plain Pallas kernels: ``fn(*in_refs, *out_refs, **constants)``
-where each ref holds a [block_size, F] tile of its array. The tail block is
-zero-padded; outputs are sliced back to N.
+where each ref holds a [block, F'] tile of its array. The Triton route
+takes only power-of-two block shapes, so ``block`` is the block size
+(at least MIN_BLOCK_ROWS) and F' the item width F, each rounded up to a
+power of two: padded rows and columns are zero on input and sliced off
+every output (N items, F columns).
 """
 
 from __future__ import annotations
@@ -29,7 +33,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..errors import (
     KernelBundleResourceCountError,
@@ -44,15 +47,34 @@ log = logging.getLogger(__name__)
 
 # The analog of min(max_compute_workgroup_size_x,
 # max_compute_invocations_per_workgroup) (reference: compute_bundle.rs:269-281):
-# how many items one program instance may process. Bounded by VMEM, not
-# thread counts, on TPU.
+# how many items one program instance may process. A Triton program holds
+# its [block, width] tiles in the registers of its warps (a few thousand
+# 32-bit values per thread at most before they spill to local memory), so
+# the bound is registers per program, not a thread count.
 MAX_BLOCK_SIZE = 8192
 DEFAULT_BLOCK_SIZE = 1024
+# A program runs at least one warp of 32 threads, so smaller blocks are
+# padded up to 32 rows rather than leaving lanes idle.
+MIN_BLOCK_ROWS = 32
 
 
 def interpret_mode() -> bool:
-    """Pallas kernels run interpreted off-TPU (CPU test meshes)."""
-    return jax.default_backend() != "tpu"
+    """Where Pallas kernels run: compiled through Triton on the GPU,
+    interpreted on the CPU (the test meshes). Any other platform has no
+    route and raises — nothing falls back silently."""
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return False
+    if platform == "cpu":
+        return True
+    raise RuntimeError(
+        f"Pallas kernels run on 'gpu' (Triton) or 'cpu' (interpreted); "
+        f"no route for platform {platform!r}"
+    )
+
+
+def _pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
 
 
 @dataclass(frozen=True)
@@ -139,44 +161,45 @@ class KernelBundle:
             run = self._build_dispatch(count, flat)
             self._dispatch_cache[key] = run
 
-        outs = run(*flat)
-        if len(self._outputs) == 1:
-            outs = (outs,)
-        result = tuple(o[:count] for o in outs)
+        result = run(*flat)
         return result if len(result) > 1 else result[0]
 
     def _build_dispatch(self, count: int, flat):
         """Jitted pad + pallas_call launcher for one dispatch signature."""
-        block = self.block_size
+        block = max(_pow2(self.block_size), MIN_BLOCK_ROWS)
         grid = pl.cdiv(count, block)
         padded = grid * block
-        widths = [a.shape[1] for a in flat]
+        in_widths = [_pow2(a.shape[1]) for a in flat]
+        out_widths = [_pow2(o.width) for o in self._outputs]
         in_specs = [
-            pl.BlockSpec((block, w), lambda i: (i, 0)) for w in widths
+            pl.BlockSpec((block, w), lambda i: (i, 0)) for w in in_widths
         ]
         out_shapes = [
-            jax.ShapeDtypeStruct((padded, o.width), o.dtype)
-            for o in self._outputs
+            jax.ShapeDtypeStruct((padded, w), o.dtype)
+            for w, o in zip(out_widths, self._outputs)
         ]
         out_specs = [
-            pl.BlockSpec((block, o.width), lambda i: (i, 0))
-            for o in self._outputs
+            pl.BlockSpec((block, w), lambda i: (i, 0)) for w in out_widths
         ]
 
         @jax.jit
         def run(*ins):
-            if padded != count:
-                ins = tuple(
-                    jnp.pad(a, ((0, padded - count), (0, 0))) for a in ins
-                )
-            return pl.pallas_call(
+            ins = tuple(
+                jnp.pad(a, ((0, padded - count), (0, w - a.shape[1])))
+                for a, w in zip(ins, in_widths)
+            )
+            outs = pl.pallas_call(
                 self._kernel,
                 grid=(grid,),
                 in_specs=in_specs,
-                out_specs=out_specs if len(out_specs) > 1 else out_specs[0],
-                out_shape=out_shapes if len(out_shapes) > 1 else out_shapes[0],
+                out_specs=out_specs,
+                out_shape=out_shapes,
+                backend="triton",
                 interpret=interpret_mode(),
             )(*ins)
+            return tuple(
+                out[:count, :o.width] for out, o in zip(outs, self._outputs)
+            )
 
         return run
 

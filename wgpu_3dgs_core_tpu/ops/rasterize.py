@@ -1,60 +1,33 @@
-"""Streaming tile rasterizer: Pallas forward + hand-derived backward.
+"""Tile rasterizer: per-tile blend kernels with a hand-derived backward.
 
-Renderer extension (SURVEY.md §7 M4/M5, hard parts #1/#2). The kernels
-consume the tile-PADDED fragment stream from ops/binning.py (each tile's
-fragments padded to a chunk multiple, so every chunk-sized block belongs to
-exactly one tile and is processed exactly once — no block sharing, no
-revisit accumulation):
+Renderer extension (SURVEY.md §7 M4/M5, hard parts #1/#2), laid out like
+the original 3DGS CUDA rasterizer (Kerbl et al. 2023):
 
-- grid = one program per GROUP of ``group`` blocks, with a STATIC inner
-  unroll. The inner loop is BRANCH-FREE: round-3 profiling showed the
-  kernels are scalar-core bound (~0.9 us/block of control flow vs
-  ~0.2 us of math), so all per-block conditions (block liveness, lane
-  validity, per-tile state reset) are folded into vector selects driven
-  by two precomputed per-block words — a packed flags array
-  (tile | first | last, built block-scale in ops/binning.pad_schedule)
-  and a per-lane tile-id row carried IN the sorted stream. The only
-  remaining branches are the per-tile flush/prefetch DMAs (fire once per
-  tile, not per block) and one group-level saturation gate.
-- the kernels read the (tile, depth)-sorted attribute stream IN PLACE:
-  two overlapping auto-pipelined [16, group*chunk] windows cover every
-  block of a group (block start offsets are monotone with increments
-  <= chunk), and each block's [16, chunk] tile is carved from the staged
-  window pair by an aligned two-chunk load + dynamic rotate (Mosaic
-  requires 128-aligned dynamic lane indices). Attribute rows broadcast
-  against the 256 tile pixels held on the other axis — [256 pixels,
-  chunk frags] VPU math with no per-chunk transposes and no repacked
-  copy of the stream.
-- per-lane validity: a fragment lane belongs to the current block's tile
-  iff its tile-id row equals the block's tile (padding lanes read the
-  NEXT tile's fragments or the t_total-tagged tail, so the equality
-  fails exactly where the old lane-count test masked). This removes
-  per-block lane-count scalars entirely.
-- x/y attribute rows are stored TILE-LOCAL (shifted by the owning tile's
-  pixel origin XLA-side after the sort), so the kernels never touch
-  tile coordinates.
-- tile pixel blocks are stored [T, 4, 256] — channels on sublanes, pixels
-  on lanes (a trailing dim of 4 would be lane-padded 32x by Mosaic). Tiles
-  are flushed once per tile through a manually double-buffered DMA chain
-  (the only manual DMA left in the forward kernel); the backward's
-  per-tile pixel inputs are prefetched one tile ahead on a second chain.
-- the front-to-back transmittance recurrence is computed per block as
-  exp(cumsum(log1p(-alpha))) with the exclusive cumsum done as blocked
-  strict-lower-triangular matmuls on the MXU.
-- a per-GROUP early-out skips all math once every pixel of the tile has
-  saturated (T <= T_MIN) and no new tile starts in the group: dense
-  scenes stop paying for occluded fragments (at most one group of
-  post-saturation math per tile).
+- one Pallas program per 16x16 tile (Triton route on the GPU); the
+  program holds the tile's 256 pixels as one vector and walks the tile's
+  ``[tile_start, tile_end)`` range of the (tile, depth)-sorted fragment
+  stream (ops/binning.bin_splats_attrs) front to back, ``BATCH``
+  fragments per loop step, with masked loads past the tile's end;
+- per batch the [256 pixels, BATCH] alphas give the transmittance
+  recurrence as exp(lt + exclusive cumsum of log1p(-alpha)) along the
+  fragment axis, where ``lt`` is the per-pixel log-transmittance carried
+  between steps; the loop stops once every pixel is saturated
+  (log T <= LOG_T_MIN);
+- every program writes its own tile, empty tiles included (background,
+  T = 1), so no output block is ever left unwritten;
+- the backward replays the tile with the front-to-back suffix-sum form
+  S_i = C_blend - A_i (only the forward's final colour and T are needed as
+  residuals). Each fragment belongs to exactly one tile, so its gradient
+  row is written exactly once, in stream order; the caller reduces the
+  rows to per-gaussian sums by gaussian id.
 
 Blending semantics match render/reference.py exactly (alpha clamp 0.99,
-alpha floor 1/255, q cutoff 3 sigma, T floor 1e-4); the backward kernel
-re-derives gradients analytically per tile with suffix sums
-S_i = C_blend - A_i so everything runs front-to-back in one pass
-(no reverse sweep, bounded memory).
+alpha floor 1/255, q cutoff 3 sigma, T floor 1e-4).
 
-Attribute rows: 0:x_local 1:y_local 2:conic_a 3:conic_b 4:conic_c 5:r 6:g
-7:b 8:opacity 9:gid 10:tile_id 11..15:pad (Mosaic requires
-sublane-tile-aligned DMA slices, so the attribute array keeps 16 rows).
+Stream rows (attribute-major [ATTR_ROWS, F]): 0:x 1:y 2:conic_a 3:conic_b
+4:conic_c 5:r 6:g 7:b 8:opacity, x/y in image pixel coordinates (a strip
+of the image keeps them global and passes its first tile row, so every
+device computes the same f32 pixel deltas as a single-device render).
 """
 
 from __future__ import annotations
@@ -64,771 +37,282 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from .binning import TILE_SIZE
 from .kernel_bundle import interpret_mode
 
-ATTR_ROWS = 16
+ATTR_ROWS = 9
 PIX = TILE_SIZE * TILE_SIZE  # 256 pixels per tile
-
-# Stream row indices (see module docstring).
-GID_ROW = 9
-TILE_ROW = 10
 
 ALPHA_CLAMP = 0.99
 ALPHA_MIN = 1.0 / 255.0
 T_MIN = 1e-4
-# The kernels carry log(T) in their per-tile state (kills an extra
-# [PIX, 1] exp + multiplies per block — the round-5 VPU-critical-path
-# item); the saturation tests compare in the log domain. exp(lt + ecs)
-# vs T * exp(ecs) differs by ~|lt| * eps ~ 5e-7 relative — far inside
-# every parity bar.
+# The kernels carry log(T) per pixel; the saturation tests compare in the
+# log domain (exp(lt + ecs) vs T * exp(ecs) differs by ~|lt| * eps).
 LOG_T_MIN = -9.210340371976182  # ln(T_MIN)
 Q_CUTOFF = 9.0  # RADIUS_CUTOFF ** 2
 
-# Blocks per grid step (static inner unroll). Sets the automatic pipeline
-# granularity: bigger groups amortize dispatch overhead, cost more VMEM
-# (2 x ATTR_ROWS x group*chunk f32 in flight) and waste more bandwidth on
-# the ragged last group. Overridable for hardware A/Bs; like
-# GS_TPU_CUMSUM_IMPL this is read at trace time — set it before the
-# first render in a process.
-import os as _os
-
-DEFAULT_GROUP = int(_os.environ.get("GS_TPU_GROUP", "8"))
-
-# Per-block flags word (ops/binning.pad_schedule): tile<<2 | first<<1 |
-# last, 0 for dead blocks past the live count.
-FLAG_FIRST = 2
-FLAG_LAST = 1
-
-# The TPU contracts f32 operands as bf16 multi-pass; at DEFAULT precision
-# that is a single bf16 pass (~2^-8 relative), which wrecks the quadratic
-# form (catastrophic cancellation against coefficients ~10^3) and the
-# transmittance cumsum (T error ~1%). HIGHEST (fp32 contract) restores
-# ~f32 accuracy; measured on hardware via tools/ probes. (Mosaic lowers
-# only DEFAULT and HIGHEST — Precision.HIGH is rejected.)
-_HIGH = jax.lax.Precision.HIGHEST
+# Fragments per loop step: [PIX, BATCH] f32 working arrays spread over the
+# program's warps. A power of two, as the Triton route requires.
+BATCH = 16
+NUM_WARPS = 8
 
 
-def _pixel_coords():
-    """Tile-local pixel-center coordinate columns ([PIX, 1] each)."""
-    p = jax.lax.broadcasted_iota(jnp.int32, (PIX, 1), 0)
-    px = (p % TILE_SIZE).astype(jnp.float32) + 0.5  # tile-local
-    py = (p // TILE_SIZE).astype(jnp.float32) + 0.5
-    return px, py
+def _compiler_params():
+    return plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1)
 
 
-def _chunk_alphas(frag, valid, chunk, cutoff_sq=Q_CUTOFF, mode=0):
-    """Shared fwd/bwd per-block math up to alpha. ``frag`` is the loaded
-    [ATTR_ROWS, chunk] block with TILE-LOCAL x/y rows; ``valid`` the
-    [1, chunk] lane-ownership mask (lane's tile-id row == block's tile).
-    Returns per-fragment rows [1, K] and per-(pixel, fragment) [PIX, K]
-    arrays (including the pixel deltas dx/dy, reused by the backward's
-    moment reductions).
+def _pixel_centers(t, tiles_x, row0):
+    """Pixel-centre coordinate columns ([PIX, 1] each) of tile ``t`` of a
+    grid whose first tile row is global row ``row0``, in the same f32
+    arithmetic as the reference renderer."""
+    p = jnp.arange(PIX, dtype=jnp.int32)
+    px = ((t % tiles_x) * TILE_SIZE + p % TILE_SIZE).astype(jnp.float32)
+    py = ((t // tiles_x + row0) * TILE_SIZE + p // TILE_SIZE).astype(
+        jnp.float32)
+    return (px + 0.5)[:, None], (py + 0.5)[:, None]
+
+
+def _load_batch(attr_ref, base, end):
+    """The attribute rows ([BATCH] each) of fragments [base, base+BATCH),
+    lanes past ``end`` masked to zero."""
+    valid = base + jnp.arange(BATCH, dtype=jnp.int32) < end
+    rows = [
+        plgpu.load(attr_ref.at[r, pl.ds(base, BATCH)], mask=valid,
+                   other=0.0)
+        for r in range(ATTR_ROWS)
+    ]
+    return rows, valid
+
+
+def _alphas(rows, valid, px, py, cutoff_sq, mode):
+    """Per-(pixel, fragment) alphas of one batch ([PIX, BATCH] each).
+
     ``mode``: 0 splat (gaussian falloff), 1 ellipse (opaque boundary ring),
     2 point (treated as splat; projection substitutes an isotropic conic) —
     the GaussianDisplayMode analog (reference: gaussian_transform.rs:7-14).
-
-    The quadratic form is evaluated DIRECTLY on the VPU as
-    q = c0 dx^2 + 2 c1 dx dy + c2 dy^2 with dx/dy broadcast outer
-    differences — measured ~0.004 us/block vs ~0.24 us for the
-    [PIX,6]@[6,K] MXU basis contraction it replaces (the 6-deep
-    contraction pads to the MXU tile; tools/bench_kernel_variants.py
-    v2 vs v3). Direct evaluation is also better conditioned than the
-    expanded-polynomial form (no large-term cancellation).
     """
-    px, py = _pixel_coords()
-    dx = px - frag[0:1, :]  # [PIX, K]
-    dy = py - frag[1:2, :]
-    c0 = frag[2:3, :]
-    c1 = frag[3:4, :]
-    c2 = frag[4:5, :]
-    op = frag[8:9, :]
-
-    q = c0 * (dx * dx) + 2.0 * c1 * (dx * dy) + c2 * (dy * dy)
-
+    x, y, ca, cb, cc = (r[None, :] for r in rows[0:5])
+    op = rows[8][None, :]
+    dx = px - x
+    dy = py - y
+    q = ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
     if mode == 1:
-        # Ellipse outline: opaque ring at the cutoff boundary (a deliberate
-        # semantic choice — see docs/ARCHITECTURE.md "Display modes").
         g_exp = jnp.ones_like(q)
-        alpha_raw = op * g_exp
-        alpha = jnp.minimum(alpha_raw, ALPHA_CLAMP)
         ring = (q <= cutoff_sq) & (q >= cutoff_sq * 0.64)
-        ok = valid & ring & (alpha >= ALPHA_MIN)
     else:
         g_exp = jnp.exp(-0.5 * q)
-        alpha_raw = op * g_exp
-        alpha = jnp.minimum(alpha_raw, ALPHA_CLAMP)
-        ok = valid & (q <= cutoff_sq) & (alpha >= ALPHA_MIN)
+        ring = q <= cutoff_sq
+    alpha_raw = op * g_exp
+    alpha = jnp.minimum(alpha_raw, ALPHA_CLAMP)
+    ok = valid[None, :] & ring & (alpha >= ALPHA_MIN)
     alpha = jnp.where(ok, alpha, 0.0)
-    return alpha, alpha_raw, g_exp, ok, dx, dy, q
+    return alpha, alpha_raw, g_exp, ok, dx, dy
 
 
-def _lane_sum3(a, rows):
-    """[PIX, 1] x3: per-pixel lane reductions of a [PIX, K] array against
-    three [1, K] broadcast rows — the VPU replacement for a [PIX,K]@[K,3]
-    MXU contraction (output lanes pad to the MXU tile, ~0.25 us/block;
-    three multiplies + lane-tree reductions are ~0.03 us)."""
-    return [
-        jnp.sum(a * rows[ch:ch + 1, :], axis=1, keepdims=True)
-        for ch in range(3)
-    ]
+def _transmittance(alpha, lt):
+    """(log1p(-alpha), T_i, blend mask) of one batch given the per-pixel
+    log-transmittance ``lt`` [PIX] in front of it."""
+    log1m = jnp.log1p(-alpha)
+    lt_i = lt[:, None] + (jnp.cumsum(log1m, axis=1) - log1m)
+    return log1m, jnp.exp(lt_i), lt_i > LOG_T_MIN
 
 
-def _tri(chunk, strict):
-    """[K, K] lower-triangular ones: cumsum-by-matmul operand."""
-    i = jax.lax.broadcasted_iota(jnp.int32, (chunk, chunk), 0)
-    j = jax.lax.broadcasted_iota(jnp.int32, (chunk, chunk), 1)
-    return ((i < j) if strict else (i <= j)).astype(jnp.float32)
+def _tile_range(start_ref, end_ref):
+    t = pl.program_id(0)
+    start = start_ref[t]
+    end = end_ref[t]
+    return t, start, end, (end - start + BATCH - 1) // BATCH
 
 
-# Lane sub-block for the cumsum-by-matmul: one MXU tile wide by default.
-# The naive [PIX, K] @ [K, K] triangular matmul costs PIX*K^2 MACs per
-# chunk; blocking it as K/B slices of [PIX, B] @ [B, B] plus a running
-# per-pixel carry costs PIX*K*B — same result up to f32 summation order.
-# Overridable (trace-time, like GS_TPU_CUMSUM_IMPL) for hardware A/Bs:
-# B=64 halves the MAC slots at the cost of one extra carry chain.
-CUMSUM_BLOCK = int(_os.environ.get("GS_TPU_CUMSUM_BLOCK", "128"))
+def _fwd_kernel(row0_ref, start_ref, end_ref, attr_ref, out_ref, *, tiles_x,
+                bg, cutoff_sq, mode):
+    t, start, end, n_batches = _tile_range(start_ref, end_ref)
+    px, py = _pixel_centers(t, tiles_x, row0_ref[0])
+
+    def cond(carry):
+        i, lt = carry[0], carry[1]
+        return (i < n_batches) & (jnp.max(lt) > LOG_T_MIN)
+
+    def body(carry):
+        i, lt, *acc = carry
+        rows, valid = _load_batch(attr_ref, start + i * BATCH, end)
+        alpha = _alphas(rows, valid, px, py, cutoff_sq, mode)[0]
+        log1m, t_i, blend = _transmittance(alpha, lt)
+        wgt = jnp.where(blend, alpha * t_i, 0.0)
+        acc = [a + jnp.sum(wgt * rows[5 + ch][None, :], axis=1)
+               for ch, a in enumerate(acc)]
+        lt = lt + jnp.sum(jnp.where(blend, log1m, 0.0), axis=1)
+        return (i + 1, lt, *acc)
+
+    zero = jnp.zeros((PIX,), jnp.float32)
+    _, lt, *acc = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), zero, zero, zero, zero)
+    )
+    t_f = jnp.exp(lt)
+    for ch in range(3):
+        out_ref[ch, :] = acc[ch] + t_f * float(bg[ch])
+    out_ref[3, :] = t_f
 
 
-def _cumsum_impl():
-    """Cumsum-by-matmul implementation knob, read from the environment.
+def _bwd_kernel(row0_ref, start_ref, end_ref, attr_ref, out_ref, g_ref,
+                _zeros_ref, dfrag_ref, *, tiles_x, bg, cutoff_sq, mode):
+    t, start, end, n_batches = _tile_range(start_ref, end_ref)
+    px, py = _pixel_centers(t, tiles_x, row0_ref[0])
 
-    Trace-time semantics: the value is baked into the jitted kernels at
-    FIRST trace in a process — set GS_TPU_CUMSUM_IMPL before the first
-    render; changing it afterwards has no effect (the jit cache will not
-    retrace). Unrecognized values raise instead of silently falling back.
-    """
-    import os
+    # Per-pixel constants of the tile: dL/d(rgb), the forward's final T,
+    # dL/dT_final including the background term, and sum_ch g_ch C_blend_ch.
+    t_f = out_ref[3, :]
+    g = [g_ref[ch, :] for ch in range(3)]
+    g_t_total = g_ref[3, :]
+    g_cbl = jnp.zeros((PIX,), jnp.float32)
+    for ch in range(3):
+        g_t_total = g_t_total + g[ch] * float(bg[ch])
+        g_cbl = g_cbl + g[ch] * (out_ref[ch, :] - t_f * float(bg[ch]))
+    g_tt = (g_t_total * t_f)[:, None]
 
-    impl = os.environ.get("GS_TPU_CUMSUM_IMPL", "split")
-    if impl not in ("split", "highest"):
-        raise ValueError(
-            f"GS_TPU_CUMSUM_IMPL must be 'split' or 'highest', got {impl!r}"
+    def cond(carry):
+        i, lt = carry[0], carry[1]
+        return (i < n_batches) & (jnp.max(lt) > LOG_T_MIN)
+
+    def body(carry):
+        i, lt, *acc = carry
+        base = start + i * BATCH
+        rows, valid = _load_batch(attr_ref, base, end)
+        alpha, alpha_raw, g_exp, ok, dx, dy = _alphas(
+            rows, valid, px, py, cutoff_sq, mode
         )
-    return impl
-
-
-def _tri_dot(x, tri_b):
-    """x @ tri in ~f32 accuracy at 1/3 the MXU passes of HIGHEST.
-
-    The cumsum matmuls are ~95% of the blend kernels' MXU MACs, and f32
-    HIGHEST runs as a 6-pass bf16 expansion of BOTH operands. But the
-    triangular operand is exactly representable in bf16 (0/1 entries), so
-    only ``x`` needs extending: split x = hi + lo into two bf16 terms
-    (representation error <= |x| * 2^-18) and contract each at native
-    bf16 rate with f32 accumulators — 2 passes, error ~2^-18 * sum|x|
-    per output lane (well inside the 1e-4 gradient / 2e-5 image bars;
-    the transmittance exponent |ecs| is <= ln(1/T_MIN) ~ 9.2 wherever T
-    is still live, so T's relative error stays <= ~3.5e-5 worst-case).
-
-    Error-bound scope: the RELATIVE bound above holds only for the
-    same-sign forward cumsum (log1p(-alpha) <= 0 everywhere, no
-    cancellation). The backward strict=False call on wgt*u has mixed
-    signs, where cancellation makes relative error unbounded — the
-    guarantee there is ABSOLUTE: ~2^-18 * sum|wgt*u| per lane, held to
-    the normalized-atol-1e-4 gradient parity bar by tests, not by a
-    relative argument.
-    """
-    if _cumsum_impl() == "highest":
-        return jnp.dot(x, tri_b, preferred_element_type=jnp.float32,
-                       precision=_HIGH)
-    tri16 = tri_b.astype(jnp.bfloat16)  # exact: 0/1 entries
-    hi = x.astype(jnp.bfloat16)
-    lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return (
-        jnp.dot(hi, tri16, preferred_element_type=jnp.float32)
-        + jnp.dot(lo, tri16, preferred_element_type=jnp.float32)
-    )
-
-
-def _cumsum_lanes(x, chunk, strict):
-    """Per-row cumsum of [PIX, K] along lanes via blocked MXU matmuls."""
-    if chunk > CUMSUM_BLOCK and chunk % CUMSUM_BLOCK:
-        raise ValueError(
-            f"chunk ({chunk}) must be <= {CUMSUM_BLOCK} or a multiple of it"
-        )
-    b = min(chunk, CUMSUM_BLOCK)
-    tri_b = _tri(b, strict)
-    if chunk == b:
-        return _tri_dot(x, tri_b)
-    parts = []
-    carry = None
-    for s in range(chunk // b):
-        xs = x[:, s * b:(s + 1) * b]
-        local = _tri_dot(xs, tri_b)
-        parts.append(local if carry is None else local + carry)
-        tot = jnp.sum(xs, axis=1, keepdims=True)
-        carry = tot if carry is None else carry + tot
-    return jnp.concatenate(parts, axis=1)
-
-
-# SMEM bookkeeping slots: [0..1] out-DMA in flight per staging slot,
-# [2] flush/issue sequence counter, [3] consume sequence counter.
-_NSCRATCH = 4
-
-
-def _load_block(win_buf, off, chunk):
-    """[ATTR_ROWS, chunk] block at dynamic lane offset ``off`` of the
-    staged window pair. Mosaic requires dynamic lane indices to be
-    128-aligned, so load an aligned 2-chunk span and rotate the remainder
-    into place (tpu.dynamic_rotate handles traced shifts)."""
-    base = pl.multiple_of((off // chunk) * chunk, chunk)
-    two = win_buf[:, pl.ds(base, 2 * chunk)]
-    rem = off - base
-    # Left-rotate by rem == right-rotate by (width - rem).
-    rolled = pltpu.roll(two, 2 * chunk - rem, axis=1)
-    return rolled[:, :chunk]
-
-
-def _block_flags(flags_ref, base, group):
-    """Decode the group's per-block flag words into scalar lists."""
-    words = [flags_ref[base + j] for j in range(group)]
-    tids = [w >> 2 for w in words]
-    firsts = [(w & FLAG_FIRST) != 0 for w in words]
-    lasts = [(w & FLAG_LAST) != 0 for w in words]
-    return tids, firsts, lasts
-
-
-def _fwd_kernel(
-    live_ref, flags_ref, off_ref, fl_ref,
-    lo_ref, hi_ref,  # VMEM (ATTR_ROWS, group*chunk) x2 — sorted-stream
-    #                  windows; every block is a contiguous slice of their
-    #                  concatenation (no repacked copy of the stream)
-    out_hbm,  # [n_tiles, 4, PIX] HBM (manual per-tile flush)
-    out_buf,  # VMEM (2, 4, PIX) flush staging
-    state_ref,  # VMEM (PIX, 8): cols 0-2 acc rgb, col 3 T
-    win_buf,  # VMEM (ATTR_ROWS, 2*group*chunk + chunk): window pair
-    #           staging (+1 chunk of never-consumed slack for the aligned
-    #           2-chunk loads of _load_block)
-    smem,  # SMEM (_NSCRATCH,) int32
-    out_sem,  # DMA semaphores (2,)
-    *,
-    chunk: int,
-    group: int,
-    bg: tuple,
-    cutoff_sq: float,
-    mode: int,
-):
-    g = pl.program_id(0)
-    base = g * group
-    win_buf[:, : group * chunk] = lo_ref[...]
-    win_buf[:, group * chunk: 2 * group * chunk] = hi_ref[...]
-
-    @pl.when(g == 0)
-    def _():
-        smem[0] = 0
-        smem[1] = 0
-        smem[2] = 0  # flush sequence counter (staging slot parity)
-
-    tids, firsts, lasts = _block_flags(flags_ref, base, group)
-    any_first = functools.reduce(jnp.logical_or, firsts)
-
-    def flush(t):
-        oslot = jax.lax.rem(smem[2], 2)
-        smem[2] += 1
-
-        @pl.when(smem[oslot] > 0)
-        def _():
-            pltpu.make_async_copy(
-                out_buf.at[oslot], out_hbm.at[0], out_sem.at[oslot]
-            ).wait()
-
-        t_f = jnp.exp(state_ref[:, 3:4])  # state carries log(T)
-        cols = [
-            state_ref[:, ch: ch + 1] + t_f * float(bg[ch])
-            for ch in range(3)
-        ]
-        final = jnp.concatenate(cols + [t_f], axis=1)  # [PIX, 4]
-        out_buf[oslot] = final.T  # one [256,4] transpose per tile
-        pltpu.make_async_copy(
-            out_buf.at[oslot], out_hbm.at[t], out_sem.at[oslot]
-        ).start()
-        smem[oslot] = 1
-
-    # Group-level saturation gate: if every pixel of the current tile is
-    # saturated and no new tile starts here, the whole group's fragments
-    # blend nothing (the T_MIN floor). Dead trailing blocks (flags 0) do
-    # run the branch-free body when their group is live, but their lanes
-    # read the t_total-tagged tail / other tiles, so valid is all-false
-    # and every contribution is exactly zero.
-    work = any_first | (jnp.max(state_ref[:, 3]) > LOG_T_MIN)
-
-    @pl.when(work)
-    def _():
-        # Pass 1 (branch-free, per block): carve + alpha.
-        frags = []
-        alphas = []
-        for j in range(group):
-            frag = _load_block(win_buf, off_ref[base + j], chunk)
-            valid = frag[TILE_ROW:TILE_ROW + 1, :] == tids[j].astype(
-                jnp.float32
-            )
-            alpha, _, _, _, _, _, _ = _chunk_alphas(
-                frag, valid, chunk, cutoff_sq, mode
-            )
-            frags.append(frag)
-            alphas.append(alpha)
-
-        # Batched exclusive cumsum: the per-block cumsums share the same
-        # triangular RHS, so sublane-stacking the group's [PIX, K] blocks
-        # into one [group*PIX, K] operand turns 2*group MXU issues into 2
-        # (identical per-row results; sublane concat/slice is vreg-aligned
-        # and free of lane shuffles).
-        log1m_all = jnp.log1p(-jnp.concatenate(alphas, axis=0))
-        ecs_all = _cumsum_lanes(log1m_all, chunk, strict=True)
-
-        # Pass 2 (sequential, per block): transmittance chain + flush.
-        for j in range(group):
-            first = firsts[j]
-            log1m = log1m_all[j * PIX:(j + 1) * PIX]
-            ecs = ecs_all[j * PIX:(j + 1) * PIX]
-
-            # Per-tile state reset folded into vector selects (no branch).
-            lt_run = jnp.where(first, 0.0, state_ref[:, 3:4])
-            lt_i = lt_run + ecs  # [PIX, K] log-transmittance
-            t_i = jnp.exp(lt_i)
-            blend = lt_i > LOG_T_MIN
-            wgt = jnp.where(blend, alphas[j] * t_i, 0.0)
-
-            # acc_ch += sum_k wgt * c_ch: VPU lane reductions (a [PIX,K]
-            # x [K,3] MXU contraction pads its 3 output lanes to the MXU
-            # tile — tools/bench_kernel_variants.py).
-            acc = _lane_sum3(wgt, frags[j][5:8, :])
-            state_ref[:, 0:3] = jnp.where(
-                first, 0.0, state_ref[:, 0:3]
-            ) + jnp.concatenate(acc, axis=1)
-            state_ref[:, 3:4] = lt_run + jnp.sum(
-                jnp.where(blend, log1m, 0.0), axis=1, keepdims=True
-            )
-
-            @pl.when(lasts[j])
-            def _(t=tids[j]):
-                flush(t)
-
-    @pl.when(jnp.logical_not(work))
-    def _():
-        # A saturated, skipped group contains no tile starts, so all its
-        # blocks continue ONE tile; if that tile ends here, flush its
-        # (unchanged) state. At most one last flag is set.
-        any_last = functools.reduce(jnp.logical_or, lasts)
-
-        @pl.when(any_last)
-        def _():
-            t = functools.reduce(
-                jax.lax.add,
-                [jnp.where(lasts[j], tids[j], 0) for j in range(group)],
-            )
-            flush(t)
-
-    @pl.when(g == pl.num_programs(0) - 1)
-    def _():
-        for s in range(2):
-            @pl.when(smem[s] > 0)
-            def _():
-                pltpu.make_async_copy(
-                    out_buf.at[s], out_hbm.at[0], out_sem.at[s]
-                ).wait()
-                smem[s] = 0
-
-
-# Backward pixel-input rows (prepared XLA-side from the forward output and
-# its cotangent — all tile-scale elementwise): 0-2 g_rgb, 3 gT_total,
-# 4 t_f, 5-7 c_blend.
-_BWD_PIX_ROWS = 8
-
-
-def _bwd_kernel(
-    live_ref, flags_ref, off_ref, fl_ref,
-    lo_ref, hi_ref,  # VMEM (ATTR_ROWS, group*chunk) x2 sorted-stream windows
-    pix_hbm,  # [n_tiles, 8, PIX] HBM: per-tile backward pixel inputs
-    dfrag_ref,  # out VMEM (ATTR_ROWS, group*chunk) — auto-pipelined,
-    #             row-major so the caller's reorder needs no transpose
-    tile_buf,  # VMEM (group + 2, _BWD_PIX_ROWS, PIX) per-tile input
-    #            staging ring: the branch-free prologue issues every
-    #            next-tile prefetch of the group (up to ``group`` of them)
-    #            BEFORE the work region consumes any, plus one may be
-    #            pending from the previous group — reuse distance is
-    #            group + 1, so group + 2 slots never collide in flight
-    win_buf,  # VMEM (ATTR_ROWS, 2*group*chunk + chunk) window staging
-    state_ref,  # VMEM (PIX, 16): 0-2 prefix A rgb, 3 T, 4 t_f, 5 gT_tot,
-    #             6-8 g_rgb, 9-11 c_blend (per-pixel columns)
-    smem,  # SMEM (_NSCRATCH,): [2] tile issue count, [3] consume count
-    tile_sem,  # DMA semaphores (group + 2,)
-    *,
-    chunk: int,
-    group: int,
-    bg: tuple,
-    cutoff_sq: float,
-    mode: int,
-):
-    g = pl.program_id(0)
-    base = g * group
-    nslots = group + 2
-    win_buf[:, : group * chunk] = lo_ref[...]
-    win_buf[:, group * chunk: 2 * group * chunk] = hi_ref[...]
-
-    def start_tile_dma(t):
-        slot = jax.lax.rem(smem[2], nslots)
-        pltpu.make_async_copy(
-            pix_hbm.at[t], tile_buf.at[slot], tile_sem.at[slot]
-        ).start()
-        smem[2] += 1
-
-    @pl.when(g == 0)
-    def _():
-        smem[2] = 0
-        smem[3] = 0
-
-        @pl.when(live_ref[0] > 0)
-        def _():
-            start_tile_dma(flags_ref[0] >> 2)
-
-    tids, firsts, lasts = _block_flags(flags_ref, base, group)
-    any_first = functools.reduce(jnp.logical_or, firsts)
-
-    # Unconditional per-block prologue (branch-free except the rare
-    # prefetch-issue DMA): carve the block and keep the carved values for
-    # the gated math below. The gid key row MUST land for every LIVE
-    # fragment even when the saturation early-out skips the math: a
-    # missing gid would surface as a zero-gradient no-key lane, which is
-    # exactly what -1 marks — but a LIVE lane's key must stay attributed
-    # to the right gaussian. Saturation makes the gradient ROWS exactly
-    # zero (T <= T_MIN => blend == False => wgt = dalpha = 0), so
-    # skipping the body is exact. The work path's block body writes all
-    # 16 output rows itself (including the gid row), so only the skipped
-    # path pays a separate zero+gid store — one output pass per block
-    # either way instead of the former unconditional zero-init + gid
-    # prologue (round-5 kernel item: merged gid-write pass).
-    frags = []
-    valids = []
-    gid_rows = []
-    for j in range(group):
-        b = base + j
-        frag = _load_block(win_buf, off_ref[b], chunk)
-        valid = frag[TILE_ROW:TILE_ROW + 1, :] == tids[j].astype(jnp.float32)
-        gid_row = jnp.where(valid, frag[GID_ROW:GID_ROW + 1, :], -1.0)
-        frags.append(frag)
-        valids.append(valid)
-        gid_rows.append(gid_row)
-
-        # Prefetch the NEXT tile's pixel inputs as soon as its first
-        # block is one step away, so the first-block prologue below
-        # never stalls on a fresh DMA. Must run even for skipped groups
-        # (the consume side waits on it at the tile's first block).
-        nxt = flags_ref[b + 1]
-
-        @pl.when((nxt & FLAG_FIRST) != 0)
-        def _(nxt=nxt):
-            start_tile_dma(nxt >> 2)
-
-    work = any_first | (jnp.max(state_ref[:, 3]) > LOG_T_MIN)
-
-    @pl.when(jnp.logical_not(work))
-    def _():
-        # Skipped group: zero gradients, gid keys only.
-        zero_pre = jnp.zeros((GID_ROW, chunk), jnp.float32)
-        zero_post = jnp.zeros((ATTR_ROWS - GID_ROW - 1, chunk), jnp.float32)
-        dfrag_ref[...] = jnp.concatenate(
-            [
-                jnp.concatenate([zero_pre, gid_rows[j], zero_post], axis=0)
-                for j in range(group)
-            ],
-            axis=1,
-        )
-
-    @pl.when(work)
-    def _():
-        # Batched exclusive cumsum across the group (mirrors the forward):
-        # log1p(-alpha) is state-independent, so the group's per-block
-        # tri-matmul issues collapse into one pair. The second cumsum (the
-        # wgt*u suffix sums in the block body) stays per-block — its input
-        # is masked by the state-dependent saturation test, which cannot
-        # be hoisted out of the sequential chain.
-        alphas = []
-        for j in range(group):
-            a_j, _, _, _, _, _, _ = _chunk_alphas(
-                frags[j], valids[j], chunk, cutoff_sq, mode
-            )
-            alphas.append(a_j)
-        log1m_all = jnp.log1p(-jnp.concatenate(alphas, axis=0))
-        ecs_all = _cumsum_lanes(log1m_all, chunk, strict=True)
-
-        for j in range(group):
-            @pl.when(firsts[j])
-            def _(j=j):
-                tslot = jax.lax.rem(smem[3], nslots)
-                pltpu.make_async_copy(
-                    pix_hbm.at[tids[j]], tile_buf.at[tslot],
-                    tile_sem.at[tslot]
-                ).wait()
-                smem[3] += 1
-                # Column 3 (log T) starts at log(1) = 0 — one zero fill.
-                state_ref[...] = jnp.zeros((PIX, 16), jnp.float32)
-                # One [8, PIX] -> [PIX, 8] transpose per tile instead of
-                # per block: park everything in pixel-column layout.
-                state_ref[:, 4:12] = jnp.concatenate(
-                    [
-                        tile_buf[tslot][4:5].T,  # t_f
-                        tile_buf[tslot][3:4].T,  # gT_total
-                        tile_buf[tslot][0:3].T,  # g_rgb
-                        tile_buf[tslot][5:8].T,  # c_blend
-                    ],
-                    axis=1,
-                )
-
-            _bwd_block_body(
-                frags[j], valids[j], gid_rows[j], dfrag_ref, state_ref, j,
-                log1m_all[j * PIX:(j + 1) * PIX],
-                ecs_all[j * PIX:(j + 1) * PIX],
-                chunk=chunk, cutoff_sq=cutoff_sq, mode=mode,
-            )
-
-
-def _bwd_block_body(frag, valid, gid_row, dfrag_ref, state_ref, j,
-                    log1m, ecs, *, chunk, cutoff_sq, mode):
-    alpha, alpha_raw, g_exp, ok, dx, dy, _ = _chunk_alphas(
-        frag, valid, chunk, cutoff_sq, mode,
-    )
-    c0 = frag[2:3, :]
-    c1 = frag[3:4, :]
-    c2 = frag[4:5, :]
-    op = frag[8:9, :]
-
-    lt_run = state_ref[:, 3:4]  # log-transmittance state
-    lt_i = lt_run + ecs
-    t_i = jnp.exp(lt_i)
-    blend = lt_i > LOG_T_MIN
-    wgt = jnp.where(blend, alpha * t_i, 0.0)
-
-    t_f = state_ref[:, 4:5]
-    g_t_total = state_ref[:, 5:6]
-
-    # dL/dalpha_i = sum_ch g_ch (T_i c_ich - S_ich/(1-a_i))
-    #              - gT_total * T_f/(1-a_i),   S_i = C_blend - A_i(incl).
-    # The channel sum distributes into the inclusive cumsum (g_ch is
-    # per-pixel constant), so with u = sum_ch g_ch c_ch the three per-
-    # channel triangular matmuls collapse into one:
-    #   sum_ch g_ch S_ich = sum_ch g_ch (C_bl_ch - A_run_ch)
-    #                       - cumsum_incl(wgt * u).
-    # u is a 3-term broadcast sum on the VPU: the [PIX,3]@[3,K] MXU form
-    # pads its 3-deep contraction to the MXU tile (~0.24 us/block,
-    # tools/bench_kernel_variants.py).
-    # 1/(1-alpha) computed once per fragment ROW ([1, K]) and multiplied
-    # in: broadcast divides of [PIX, K] arrays are ~10x a multiply on the
-    # VPU; the reciprocal's ~1 ulp extra error is far inside the 1e-4
-    # normalized gradient bar.
-    one_minus = jnp.where(alpha < 1.0, 1.0 - alpha, 1.0)
-    inv_om = 1.0 / one_minus  # [1, K]
-    g3 = state_ref[:, 6:9]  # [PIX, 3]
-    c_rows = frag[5:8, :]  # [3, K]
-    u = (
-        g3[:, 0:1] * c_rows[0:1, :]
-        + g3[:, 1:2] * c_rows[1:2, :]
-        + g3[:, 2:3] * c_rows[2:3, :]
-    )  # [PIX, K]
-    g_cbl_a = jnp.sum(
-        g3 * (state_ref[:, 9:12] - state_ref[:, 0:3]), axis=1, keepdims=True
-    )  # [PIX, 1]
-    gs_i = g_cbl_a - _cumsum_lanes(wgt * u, chunk, strict=False)
-    dalpha = t_i * u - (gs_i + g_t_total * t_f) * inv_om
-    # color gradient: dL/dc_ich = sum_pix g_ch w_i — three sublane-tree
-    # reductions (the [3,PIX]@[PIX,K] MXU form pads its 3 output rows).
-    d_color = jnp.concatenate(
-        [
-            jnp.sum(g3[:, ch:ch + 1] * wgt, axis=0, keepdims=True)
-            for ch in range(3)
-        ],
-        axis=0,
-    )  # [3, K]
-    dalpha = jnp.where(blend & ok, dalpha, 0.0)
-
-    # alpha = min(0.99, op * G): clamp kills the gradient.
-    live_a = alpha_raw < ALPHA_CLAMP
-    dalpha = jnp.where(live_a, dalpha, 0.0)
-
-    if mode != 1:
-        # Moment reductions in the translated (dx, dy) basis: q is linear
-        # in (c0, c1, c2) and quadratic in the pixel deltas, so the six
-        # per-fragment gradients are sublane-tree reductions of d_q
-        # against {1, dx, dy, dx^2, dx dy, dy^2} on the VPU (the former
-        # [6,PIX]@[PIX,K] MXU moment contraction padded its 6 output
-        # rows; same math, translated basis).
-        # d_op = sum_p dalpha * g_exp = (-2 / op) * sum_p d_q = -2 S0 / op
-        # (exact where op > 0; op == 0 implies dalpha == 0, so the guard
-        # returns the true 0).
-        d_q = (-0.5) * op * (dalpha * g_exp)  # [PIX, K]
-
-        def _psum(x):
-            return jnp.sum(x, axis=0, keepdims=True)  # [1, K]
-
-        s0 = _psum(d_q)
-        d_qx = d_q * dx
-        d_qy = d_q * dy
-        sx = _psum(d_qx)
-        sy = _psum(d_qy)
-        d_op = jnp.where(op > 0.0, -2.0 * s0 / op, 0.0)
-        d_c0 = _psum(d_qx * dx)
-        d_c1 = 2.0 * _psum(d_qx * dy)
-        d_c2 = _psum(d_qy * dy)
-        # dx = px - x: d/dx q = -(2 c0 dx + 2 c1 dy), d/dy analogous.
-        d_x = -2.0 * (c0 * sx + c1 * sy)
-        d_y = -2.0 * (c1 * sx + c2 * sy)
-    else:
-        # Ellipse mode: alpha is flat inside the ring (g_exp == 1), so only
-        # opacity receives gradient.
-        zero = jnp.zeros((1, chunk), jnp.float32)
-        d_op = jnp.sum(dalpha, axis=0, keepdims=True)
-        d_c0 = d_c1 = d_c2 = d_x = d_y = zero
-
-    dfrag_ref[:, j * chunk:(j + 1) * chunk] = jnp.concatenate(
-        [d_x, d_y, d_c0, d_c1, d_c2, d_color, d_op, gid_row,
-         jnp.zeros((ATTR_ROWS - 10, chunk), jnp.float32)], axis=0
-    )
-
-    # advance prefix accumulators (VPU lane reductions, see _lane_sum3)
-    state_ref[:, 0:3] += jnp.concatenate(_lane_sum3(wgt, c_rows), axis=1)
-    state_ref[:, 3:4] = lt_run + jnp.sum(
-        jnp.where(blend, log1m, 0.0), axis=1, keepdims=True
-    )
-
-
-def _grid_steps(live_blocks, b_cap, group):
-    """Live-block-bound grid: on hardware the kernels run only the groups
-    that contain live blocks (Mosaic supports dynamic grid bounds — a
-    traced scalar; validated by tools/probe_dyngrid.py). ~30% of the
-    capacity-bound grid is dead padding at bench shapes (VERDICT r3).
-    Interpret mode (CPU tests) keeps the static capacity grid — the
-    interpreter cannot loop over a traced bound; dead groups there are
-    exact no-ops (flags 0, tile-equality mask all-false).
-
-    The consumers handle the never-visited tail: forward tiles of
-    truncated blocks are composited via ``tile_written``; the backward
-    caller masks dfrag lanes past ``live_blocks * chunk`` before its
-    sort/segment-reduce (unwritten memory may hold NaN, which a 0-weight
-    matmul would NOT sanitize).
-    """
-    if interpret_mode():
-        return b_cap // group
-    return jnp.maximum(
-        jax.lax.div(live_blocks[0] + group - 1, group), 1
-    )
-
-
-def _window_specs(group, chunk):
-    """Two overlapping sorted-stream windows: block b's fragments live at
-    lane offset off[b] within the concatenation of windows fl[g] and
-    fl[g]+1 (src_base is monotone with increments <= chunk, so a group's
-    blocks always fit in 2 * group * chunk lanes)."""
-    return [
-        pl.BlockSpec((ATTR_ROWS, group * chunk),
-                     lambda g, live, flags, off, fl: (0, fl[g])),
-        pl.BlockSpec((ATTR_ROWS, group * chunk),
-                     lambda g, live, flags, off, fl: (0, fl[g] + 1)),
-    ]
-
-
-def rasterize_tiles_fwd(
-    mat,  # [ATTR_ROWS, MAT_COLS] f32 sorted stream (rows: see module doc),
-    #       x/y tile-local, row 9 gid, row 10 tile id, tail tile = t_total
-    off,  # [B_cap] int32: block's lane offset within its window pair
-    fl,  # [n_groups] int32: window index per group
-    blk_flags,  # [B_cap + 1] int32: tile<<2 | first<<1 | last, 0 when dead
-    live_blocks,  # [1] int32
-    chunk: int,
-    n_tiles: int,
-    bg: tuple,
-    cutoff_sq: float = Q_CUTOFF,
-    mode: int = 0,
-    group: int = DEFAULT_GROUP,
-):
-    """Rasterize the tile-padded view of the sorted fragment stream.
-
-    Returns [n_tiles, 4, 256] f32: RGB rows (background composited) +
-    final-transmittance row, pixels on the last axis. Blocks of tiles with
-    no fragments are never written (composite them outside). Not
+        log1m, t_i, blend = _transmittance(alpha, lt)
+        wgt = jnp.where(blend, alpha * t_i, 0.0)
+
+        # dL/dalpha_i = sum_ch g_ch (T_i c_ich - S_ich / (1 - a_i))
+        #              - gT_total T_f / (1 - a_i),  S_i = C_blend - A_i
+        # (A_i inclusive). With u = sum_ch g_ch c_ch the channel sums
+        # collapse into one inclusive cumsum of wgt * u.
+        u = sum(g[ch][:, None] * rows[5 + ch][None, :] for ch in range(3))
+        g_cbl_a = g_cbl - sum(g[ch] * acc[ch] for ch in range(3))
+        gs_i = g_cbl_a[:, None] - jnp.cumsum(wgt * u, axis=1)
+        dalpha = t_i * u - (gs_i + g_tt) / (1.0 - alpha)
+        # alpha = min(0.99, op * G): the clamp kills the gradient.
+        dalpha = jnp.where(blend & ok & (alpha_raw < ALPHA_CLAMP), dalpha,
+                           0.0)
+
+        grads = [None] * ATTR_ROWS
+        for ch in range(3):
+            grads[5 + ch] = jnp.sum(g[ch][:, None] * wgt, axis=0)
+        if mode == 1:
+            # Ellipse: alpha is flat inside the ring, only opacity learns.
+            grads[8] = jnp.sum(dalpha, axis=0)
+            zero = jnp.zeros((BATCH,), jnp.float32)
+            for r in range(5):
+                grads[r] = zero
+        else:
+            ca, cb, cc = rows[2], rows[3], rows[4]
+            dag = dalpha * g_exp
+            grads[8] = jnp.sum(dag, axis=0)
+            d_q = (-0.5 * rows[8])[None, :] * dag  # dL/dq
+            d_qx = d_q * dx
+            d_qy = d_q * dy
+            sx = jnp.sum(d_qx, axis=0)
+            sy = jnp.sum(d_qy, axis=0)
+            # dx = px - x: dq/dx = -2 (a dx + b dy), dq/dy = -2 (b dx + c dy)
+            grads[0] = -2.0 * (ca * sx + cb * sy)
+            grads[1] = -2.0 * (cb * sx + cc * sy)
+            grads[2] = jnp.sum(d_qx * dx, axis=0)
+            grads[3] = 2.0 * jnp.sum(d_qx * dy, axis=0)
+            grads[4] = jnp.sum(d_qy * dy, axis=0)
+        for r in range(ATTR_ROWS):
+            plgpu.store(dfrag_ref.at[r, pl.ds(base, BATCH)], grads[r],
+                        mask=valid)
+
+        acc = [a + jnp.sum(wgt * rows[5 + ch][None, :], axis=1)
+               for ch, a in enumerate(acc)]
+        lt = lt + jnp.sum(jnp.where(blend, log1m, 0.0), axis=1)
+        return (i + 1, lt, *acc)
+
+    zero = jnp.zeros((PIX,), jnp.float32)
+    # Fragments behind the saturation point keep the zero rows the output
+    # buffer starts with: their gradients are exactly zero.
+    jax.lax.while_loop(cond, body, (jnp.int32(0), zero, zero, zero, zero))
+
+
+def _pad_stream(attrs):
+    """BATCH zero columns past the capacity: a batch starting inside the
+    stream never reads or writes past the array, on the card or in the
+    interpreter (whose dynamic slices clamp instead of masking)."""
+    return jnp.pad(attrs, ((0, 0), (0, BATCH)))
+
+
+def _row0(tile_y_offset):
+    return jnp.reshape(jnp.asarray(tile_y_offset, jnp.int32), (1,))
+
+
+def rasterize_tiles_fwd(attrs, tile_start, tile_end, tiles_x: int,
+                        n_tiles: int, bg: tuple,
+                        cutoff_sq: float = Q_CUTOFF, mode: int = 0,
+                        tile_y_offset=0):
+    """Blend every tile of the sorted stream.
+
+    ``attrs`` [ATTR_ROWS, F] f32 sorted stream; ``tile_start``/``tile_end``
+    [n_tiles] int32 fragment ranges; ``tile_y_offset`` (int, may be traced)
+    the global tile row of the grid's first row, for a strip of a larger
+    image. Returns [n_tiles, 4, 256] f32: RGB rows
+    (background composited) and the final transmittance, pixels last. Not
     differentiable by itself — render/renderer.py wires the custom vjp
-    around binning + this + :func:`rasterize_tiles_bwd`.
+    around binning, this and :func:`rasterize_tiles_bwd`.
     """
-    b_cap = blk_flags.shape[0] - 1
-    assert b_cap % group == 0, "block capacity must be a group multiple"
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(_grid_steps(live_blocks, b_cap, group),),
-        in_specs=_window_specs(group, chunk),
-        out_specs=pl.BlockSpec(memory_space=pltpu.HBM),
-        scratch_shapes=[
-            pltpu.VMEM((2, 4, PIX), jnp.float32),
-            pltpu.VMEM((PIX, 8), jnp.float32),
-            pltpu.VMEM((ATTR_ROWS, 2 * group * chunk + chunk), jnp.float32),
-            pltpu.SMEM((_NSCRATCH,), jnp.int32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
     return pl.pallas_call(
-        functools.partial(_fwd_kernel, chunk=chunk, group=group,
-                          bg=bg, cutoff_sq=cutoff_sq, mode=mode),
-        grid_spec=grid_spec,
+        functools.partial(_fwd_kernel, tiles_x=tiles_x, bg=tuple(bg),
+                          cutoff_sq=float(cutoff_sq), mode=int(mode)),
+        grid=(n_tiles,),
+        out_specs=pl.BlockSpec((None, 4, PIX), lambda t: (t, 0, 0)),
         out_shape=jax.ShapeDtypeStruct((n_tiles, 4, PIX), jnp.float32),
+        backend="triton",
+        compiler_params=_compiler_params(),
         interpret=interpret_mode(),
-    )(live_blocks, blk_flags, off, fl, mat, mat)
+        name="blend_fwd",
+    )(_row0(tile_y_offset), tile_start, tile_end, _pad_stream(attrs))
 
 
-def rasterize_tiles_bwd(
-    mat, off, fl, blk_flags, live_blocks,
-    out,  # [n_tiles, 4, PIX]: the forward output (residual)
-    g_out,  # [n_tiles, 4, PIX]: its cotangent
-    chunk: int,
-    n_tiles: int,
-    bg: tuple,
-    cutoff_sq: float = Q_CUTOFF,
-    mode: int = 0,
-    group: int = DEFAULT_GROUP,
-):
-    """Hand-derived backward: per-block attribute gradients.
+def rasterize_tiles_bwd(attrs, tile_start, tile_end, out, g_out,
+                        tiles_x: int, n_tiles: int, bg: tuple,
+                        cutoff_sq: float = Q_CUTOFF, mode: int = 0,
+                        tile_y_offset=0):
+    """Hand-derived backward of :func:`rasterize_tiles_fwd`.
 
-    Returns dfrag [ATTR_ROWS, B_cap * chunk]: rows 0-8 the gradients,
-    row 9 the owning gaussian id (-1 on padding/dead lanes) — the key for
-    the caller's sort + segment reduction back to the [N, 9] table.
+    ``out`` is the forward output (residual) and ``g_out`` its cotangent,
+    both [n_tiles, 4, 256]. Returns dfrag [ATTR_ROWS, F]: each fragment's
+    gradient with respect to its stream attributes (zero for fragments
+    outside every tile range and behind each tile's saturation point).
     """
-    b_cap = blk_flags.shape[0] - 1
-
-    # Per-tile backward pixel inputs, all tile-scale elementwise (XLA
-    # fuses this into one pass over the [T, 4, PIX] arrays).
-    bgv = jnp.asarray(bg, jnp.float32).reshape(3, 1)
-    g_rgb = g_out[:, 0:3, :]
-    t_f = out[:, 3:4, :]
-    g_t_total = g_out[:, 3:4, :] + jnp.sum(
-        g_rgb * bgv[None], axis=1, keepdims=True
-    )
-    c_blend = out[:, 0:3, :] - t_f * bgv[None]
-    pix_in = jnp.concatenate([g_rgb, g_t_total, t_f, c_blend], axis=1)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(_grid_steps(live_blocks, b_cap, group),),
-        in_specs=_window_specs(group, chunk) + [
-            pl.BlockSpec(memory_space=pltpu.HBM),
+    f = attrs.shape[1]
+    pix_spec = pl.BlockSpec((None, 4, PIX), lambda t: (t, 0, 0))
+    dfrag = pl.pallas_call(
+        functools.partial(_bwd_kernel, tiles_x=tiles_x, bg=tuple(bg),
+                          cutoff_sq=float(cutoff_sq), mode=int(mode)),
+        grid=(n_tiles,),
+        in_specs=[
+            pl.no_block_spec, pl.no_block_spec, pl.no_block_spec,
+            pl.no_block_spec, pix_spec, pix_spec, pl.no_block_spec,
         ],
-        out_specs=pl.BlockSpec((ATTR_ROWS, group * chunk),
-                               lambda g, *p: (0, g)),
-        scratch_shapes=[
-            pltpu.VMEM((group + 2, _BWD_PIX_ROWS, PIX), jnp.float32),
-            pltpu.VMEM((ATTR_ROWS, 2 * group * chunk + chunk), jnp.float32),
-            pltpu.VMEM((PIX, 16), jnp.float32),
-            pltpu.SMEM((_NSCRATCH,), jnp.int32),
-            pltpu.SemaphoreType.DMA((group + 2,)),
-        ],
-    )
-    return pl.pallas_call(
-        functools.partial(_bwd_kernel, chunk=chunk, group=group,
-                          bg=bg, cutoff_sq=cutoff_sq, mode=mode),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((ATTR_ROWS, b_cap * chunk),
-                                       jnp.float32),
+        out_specs=pl.no_block_spec,
+        out_shape=jax.ShapeDtypeStruct((ATTR_ROWS, f + BATCH), jnp.float32),
+        input_output_aliases={6: 0},
+        backend="triton",
+        compiler_params=_compiler_params(),
         interpret=interpret_mode(),
-    )(live_blocks, blk_flags, off, fl, mat, mat, pix_in)
+        name="blend_bwd",
+    )(_row0(tile_y_offset), tile_start, tile_end, _pad_stream(attrs), out,
+      g_out, jnp.zeros((ATTR_ROWS, f + BATCH), jnp.float32))
+    return dfrag[:, :f]
+
+
+def reduce_fragment_grads(dfrag, gauss_id, n: int):
+    """Per-fragment gradient rows [ATTR_ROWS, F] -> per-gaussian sums
+    [ATTR_ROWS, n]: one scatter-add by gaussian id (ids outside [0, n)
+    are dropped)."""
+    return jax.ops.segment_sum(dfrag.T, gauss_id, num_segments=n).T
 
 
 def tiles_to_image(tiles: jnp.ndarray, tiles_x: int, tiles_y: int,

@@ -1,6 +1,6 @@
 """Device math library: quaternion/covariance/model-transform functions.
 
-TPU-native equivalent of the reference's WESL shader library
+JAX equivalent of the reference's WESL shader library
 (reference: src/shader/gaussian.wesl, src/shader/model_transform.wesl).
 Pure jnp functions, batched over leading axes, usable both inside Pallas
 kernels and in plain jitted code — the analog of WESL modules imported by
@@ -78,7 +78,7 @@ def unpack_cov3d(cov3d: jnp.ndarray, rot_scale: bool) -> jnp.ndarray:
 
     The analog of the three WESL gaussian_unpack_cov3d variants
     (reference: src/shader/gaussian.wesl:80-149): rot_scale recomputes
-    sigma; single/half are dtype casts (no u32 bit-unpacking needed on TPU —
+    sigma; single/half are dtype casts (no u32 bit-unpacking needed —
     the packed SoA keeps native f16/f32 lanes).
     """
     if rot_scale:

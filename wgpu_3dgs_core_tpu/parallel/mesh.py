@@ -1,9 +1,9 @@
 """Device mesh helpers for multi-chip/multi-host scaling.
 
 The reference has no distributed layer (SURVEY.md §2.3); this is the
-TPU-native addition demanded by the north star: gaussians sharded over a
+addition demanded by the north star: gaussians sharded over a
 1D "data" mesh axis, tiles strip-partitioned over the same axis, XLA
-collectives over ICI/DCN. Multi-host initialization goes through
+collectives over the interconnect (NVLink within a host). Multi-host initialization goes through
 ``jax.distributed.initialize`` before building the mesh.
 """
 
@@ -28,9 +28,8 @@ def initialize_multihost(
 
     Thin wrapper over ``jax.distributed.initialize`` so the launch recipe
     is one call per host (see docs/ARCHITECTURE.md "Multi-host launch").
-    On TPU pods every argument is auto-detected from the TPU metadata
-    server, so a bare ``initialize_multihost()`` on each host suffices; on
-    CPU/GPU fleets pass the coordinator explicitly:
+    Pass the coordinator, the process count and this process's index
+    explicitly:
 
         # host 0 and host 1, same command with different process_id:
         initialize_multihost("10.0.0.1:8476", num_processes=2, process_id=i)

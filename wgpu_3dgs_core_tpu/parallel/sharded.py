@@ -8,9 +8,9 @@ sequence-parallel attention for the gaussian axis:
 - **Splat exchange** (default ``exchange="all_to_all"``): each device
   routes its projected splats (~14 f32 each — far smaller than the raw
   parameters + SH) to the devices whose tile-row strips their screen
-  bboxes overlap, via ONE ``all_to_all`` over ICI. Each device then bins
+  bboxes overlap, via ONE ``all_to_all``. Each device then bins
   only the O(N/D · skew) splats that can actually land in its strip —
-  per-device binning work and ICI volume both shrink with the device
+  per-device binning work and exchange volume both shrink with the device
   count (the ``all_gather`` mode replicates all N splats everywhere and
   is kept for A/B and as an overflow-proof fallback).
 - **Tiles strip-partitioned**: each device bins + rasterizes a horizontal
@@ -38,7 +38,6 @@ from ..ops.binning import TILE_SIZE, default_max_fragments, num_tiles
 from ..ops.rasterize import tiles_to_image
 from ..render.camera import Camera
 from ..render.renderer import (
-    DEFAULT_CHUNK,
     RenderResult,
     project_and_color,
     rasterize_splats,
@@ -60,63 +59,6 @@ def _strip_rows(tiles_y: int, n_dev: int) -> int:
     return -(-tiles_y // n_dev)
 
 
-@jax.custom_vjp
-def _gather_rows(packed, src, valid):
-    """Masked routing gather: rows = packed[src] where valid, else 0.
-
-    Custom VJP (VERDICT r4 item 5): autodiff's transpose of the gather is
-    an XLA scatter-add at r_cap scale, which the round-2 data-movement
-    table prices ~2 orders above a sort. The backward instead groups the
-    cotangent rows by source index with ONE (src)-keyed sort and reduces
-    segments by cumsum difference — all r_cap/N_local-scale. The cumsum
-    runs f32 over <= r_cap * C bounded gradient rows; its absolute error
-    (~eps * running sum) is far inside the 1e-4 normalized parity bars
-    (each source appears <= n_dev times, so segments are tiny).
-    Only visible on real pods — correct-by-construction here.
-    """
-    rows = packed[src]
-    return jnp.where(valid[:, None], rows, 0.0)
-
-
-def _gather_rows_fwd(packed, src, valid):
-    return _gather_rows(packed, src, valid), (
-        src, valid, packed.shape[0]
-    )
-
-
-def _gather_rows_bwd(res, g):
-    import numpy as np
-
-    src, valid, n_local = res
-    r_cap, c = g.shape
-    # Dead slots key past every real source and carry zero cotangent.
-    key = jnp.where(valid, src, n_local).astype(jnp.int32)
-    g = jnp.where(valid[:, None], g, 0.0)
-    sorted_cols = jax.lax.sort(
-        (key, *(g[:, i] for i in range(c))), num_keys=1, is_stable=False,
-    )
-    ks = sorted_cols[0]
-    gs = jnp.stack(sorted_cols[1:], axis=1)  # [r_cap, C]
-    csum = jnp.cumsum(gs, axis=0)
-    ids = jnp.arange(n_local, dtype=jnp.int32)
-    left = jnp.searchsorted(ks, ids, side="left").astype(jnp.int32)
-    right = jnp.searchsorted(ks, ids, side="right").astype(jnp.int32)
-    hi = csum[jnp.clip(right - 1, 0, r_cap - 1)]
-    lo = jnp.where(
-        (left > 0)[:, None], csum[jnp.clip(left - 1, 0, r_cap - 1)], 0.0
-    )
-    d_packed = jnp.where((right > left)[:, None], hi - lo, 0.0)
-    f0 = jax.dtypes.float0
-    return (
-        d_packed,
-        np.zeros(src.shape, dtype=f0),
-        np.zeros(valid.shape, dtype=f0),
-    )
-
-
-_gather_rows.defvjp(_gather_rows_fwd, _gather_rows_bwd)
-
-
 def _route_to_strips(packed, s0, s1, n_dev: int, cap: int):
     """Build the [D, cap, C] all_to_all send buffer from local splats.
 
@@ -127,20 +69,19 @@ def _route_to_strips(packed, s0, s1, n_dev: int, cap: int):
     Returns (send, overflowed) where ``overflowed`` flags any destination
     whose overlap count exceeded ``cap`` (excess splats dropped).
 
-    Sort-based build (VERDICT r3 item 4): the old per-destination
-    vmapped cumsum/searchsorted/gather measured 41 ms at D=8 /
-    N_local=125K on hardware; this expands (splat, dst) slots into the
+    Sort-based build: instead of a per-destination vmapped
+    cumsum/searchsorted/gather, this expands (splat, dst) slots into the
     D*cap send capacity, sorts ONE small (dst, src)-keyed index stream,
-    and fills the buffer with a single row gather (~10x cheaper, same
+    and fills the buffer with a single row gather (same
     source-order-within-destination semantics).
     """
     n_local = packed.shape[0]
     if n_dev == 1:
         # Routing to one strip is the identity: every live splat goes to
         # device 0 (dead splats ride along with mask 0 and are culled by
-        # the binning). Keeps D=1 sharded within a few percent of the
+        # the binning). Keeps D=1 sharded close to the
         # plain renderer instead of paying a pointless N-scale shuffle.
-        # NOTE (ADVICE r4): at cap < n_local this truncates the RAW
+        # NOTE: at cap < n_local this truncates the RAW
         # order (possibly dropping live splats the D>1 compaction would
         # keep); the default sizing yields cap == n_local at D=1
         # (splat_skew >= 1), so the branch is reachable only with a
@@ -193,10 +134,10 @@ def _route_to_strips(packed, s0, s1, n_dev: int, cap: int):
     pos = dst_starts[:, None] + j[None, :]  # [D, cap]
     valid = j[None, :] < jnp.minimum(counts, cap)[:, None]
     src = owner_sorted[jnp.clip(pos.reshape(-1), 0, r_cap - 1)]
-    # ONE [D*cap, C] row gather; custom VJP so the transpose is a sorted
-    # segment sum instead of an XLA scatter-add (see _gather_rows).
-    send = _gather_rows(
-        packed, jax.lax.stop_gradient(src), valid.reshape(-1)
+    # ONE [D*cap, C] row gather; its transpose (the backward) is a
+    # scatter-add of the routed splat gradients onto their sources.
+    send = jnp.where(
+        valid.reshape(-1)[:, None], packed[src], 0.0
     ).reshape(n_dev, cap, -1)
     # total > r_cap implies some destination exceeded cap (pigeonhole),
     # so the truncated expansion is always surfaced.
@@ -217,7 +158,6 @@ def render_sharded(
     model_transform: Optional[tuple] = None,
     max_fragments: Optional[int] = None,
     per_device_fragments: Optional[int] = None,
-    chunk: int = DEFAULT_CHUNK,
     size: float = 1.0,
     max_std_dev: float = 3.0,
     display_mode: GaussianDisplayMode = GaussianDisplayMode.SPLAT,
@@ -225,7 +165,6 @@ def render_sharded(
     strip_skew: float = 2.0,
     exchange: str = "all_to_all",
     splat_skew: float = 2.0,
-    pad_slack: float = 1.0,
 ) -> RenderResult:
     """Differentiable multi-device render (feature parity with ``render``).
 
@@ -268,7 +207,6 @@ def render_sharded(
         f_cap = max_fragments
         if n_dev > 1:
             f_cap = int(f_cap * strip_skew / n_dev)
-    f_cap = -(-f_cap // chunk) * chunk
 
     # Per-(source, strip) routing capacity: N/D^2 * skew, lane-rounded.
     route_cap = max(int(n_local / max(n_dev, 1) * splat_skew), 128)
@@ -277,7 +215,6 @@ def render_sharded(
 
     bg = tuple(background)
     use_sh = sh is not None
-    strip_px = rows_per_dev * TILE_SIZE
     cutoff_sq = float(max_std_dev) ** 2
     mode = int(display_mode)
 
@@ -325,7 +262,7 @@ def render_sharded(
         else:
             # Route splats to the strips their bbox overlaps (the same
             # tile-row arithmetic as ops/binning.tile_bounds, divided by
-            # the strip height), then ONE all_to_all over ICI.
+            # the strip height), then ONE all_to_all.
             xy_y = packed[:, 1]
             ey = packed[:, 11]
             live = (packed[:, _PK_MASK] > 0.5) & (ey > 0.0)
@@ -354,18 +291,15 @@ def render_sharded(
         extent = packed[:, _PK_EXTENT]
         mask = packed[:, _PK_MASK] > 0.5
 
-        # Rasterize this device's strip of tile rows: shift splats into
-        # strip-local pixel space (the kernel derives pixel coordinates
-        # from local tile ids; a 2D gaussian is translation-invariant).
+        # Rasterize this device's strip of tile rows. Splat coordinates
+        # stay global: the kernels offset their pixel centres by the
+        # strip's first tile row, so every pixel delta is the same f32
+        # value a single-device render computes.
         d = jax.lax.axis_index(DATA_AXIS)
-        y_shift = (d * strip_px).astype(jnp.float32)
-        xy_local = xy - jnp.stack(
-            [jnp.zeros_like(y_shift), y_shift]
-        )[None, :]
         tiles, overflow = rasterize_splats(
-            xy_local, depth, conic, extent, mask, rgb, opac,
-            tiles_x, rows_per_dev, f_cap, chunk, bg,
-            cutoff_sq=cutoff_sq, mode=mode, pad_slack=pad_slack,
+            xy, depth, conic, extent, mask, rgb, opac,
+            tiles_x, rows_per_dev, f_cap, bg,
+            tile_y_offset=d * rows_per_dev, cutoff_sq=cutoff_sq, mode=mode,
         )
 
         strips = jax.lax.all_gather(tiles, DATA_AXIS, axis=0, tiled=True)
@@ -374,7 +308,9 @@ def render_sharded(
         ) > 0
         return strips, any_overflow
 
-    strips, overflow = step(
+    # Jitted so that an eager call compiles the sharded program once
+    # instead of running the shard_map body op by op.
+    strips, overflow = jax.jit(step)(
         means, cov3d_sigma6, base_color, opacity,
         sh if use_sh else jnp.zeros((1, 15, 3), jnp.float32),
     )

@@ -44,6 +44,12 @@ class Camera:
     def view_matrix(self) -> jnp.ndarray:
         return jnp.asarray(self.view, jnp.float32).reshape(4, 4)
 
+    def position(self) -> np.ndarray:
+        """Camera centre in world space (-R^T t of the view), as a host
+        f32 constant."""
+        v = np.asarray(self.view, np.float64).reshape(4, 4)
+        return (-v[:3, :3].T @ v[:3, 3]).astype(np.float32)
+
     @property
     def tan_half_fov_x(self) -> float:
         return self.width / (2.0 * self.fx)

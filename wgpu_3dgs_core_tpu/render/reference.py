@@ -22,7 +22,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops.projection import project
-from ..ops.sh import gaussian_color
+from ..ops.sh import gaussian_color, view_directions
 from .camera import Camera
 
 ALPHA_CLAMP = 0.99
@@ -76,8 +76,8 @@ def render_reference(
     ``sh``: optional [N, 15, 3] rest coefficients.
     ``pixel_window``: optional (x0, y0, w, h) crop — identical blending
     semantics evaluated only at those pixels (projection still uses the
-    full camera). Lets bench-shape gradient-parity checks avoid the
-    infeasible O(N * W * H) dense evaluation (tools/grad_parity_tpu.py).
+    full camera). Lets full-size gradient-parity checks avoid the
+    infeasible O(N * W * H) dense evaluation (chip_smoke.py).
     """
     h, w_px = camera.height, camera.width
     splats = project(means, cov3d_sigma6, camera, model_transform,
@@ -96,11 +96,7 @@ def render_reference(
         )
 
     # View-dependent color, directions from camera center to each gaussian.
-    view = camera.view_matrix()
-    cam_pos = -jnp.einsum("ji,j->i", view[:3, :3], view[:3, 3],
-                          precision=jax.lax.Precision.HIGHEST)
-    dirs = means - cam_pos
-    dirs = dirs / jnp.linalg.norm(dirs, axis=-1, keepdims=True).clip(1e-12)
+    dirs = view_directions(means, camera.position())
     rgb = gaussian_color(base_color, sh, dirs, sh_deg, no_sh0)  # [N, 3]
 
     # Blend order: depth ascending, invalid last (argsort is stable: ties

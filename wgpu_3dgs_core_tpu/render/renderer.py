@@ -23,36 +23,20 @@ from ..buffer import (
 )
 from ..layouts import Cov3dFormat, PackedGaussians
 from ..ops.binning import (
-    TILE_SIZE,
     bin_splats_attrs,
     default_max_fragments,
     num_tiles,
-    pad_schedule,
 )
 from ..ops.projection import project
 from ..ops.rasterize import (
-    ATTR_ROWS,
-    DEFAULT_GROUP,
-    TILE_ROW,
     rasterize_tiles_bwd,
     rasterize_tiles_fwd,
+    reduce_fragment_grads,
     tiles_to_image,
 )
-from ..ops.segreduce import (
-    gid_column_sorted,
-    segment_sums_sorted,
-    split_grad_rows,
-    uncompact_columns,
-)
-from ..ops.sh import gaussian_color
+from ..ops.sh import gaussian_color, view_directions
 from ..ops.transforms import unpack_color, unpack_cov3d, unpack_sh
 from .camera import Camera
-
-# Fragment block width for the streaming rasterizer. With the tile-padded
-# stream each tile pays an average chunk/2 padding slots, so the smaller
-# MXU-native width wastes less than 256 did; per-block fixed costs are
-# amortized by the kernels' inner work loop.
-DEFAULT_CHUNK = 128
 
 
 class RenderResult(NamedTuple):
@@ -98,11 +82,7 @@ def project_and_color(
             ),
         )
 
-    view = camera.view_matrix()
-    cam_pos = -jnp.einsum("ji,j->i", view[:3, :3], view[:3, 3],
-                          precision=jax.lax.Precision.HIGHEST)
-    dirs = means - cam_pos
-    dirs = dirs / jnp.linalg.norm(dirs, axis=-1, keepdims=True).clip(1e-12)
+    dirs = view_directions(means, camera.position())
     rgb = gaussian_color(base_color, sh, dirs, sh_deg, no_sh0)
     return splats, rgb, opacity
 
@@ -198,12 +178,10 @@ def render(
     background: tuple = (0.0, 0.0, 0.0),
     model_transform: Optional[tuple] = None,
     max_fragments: Optional[int] = None,
-    chunk: int = DEFAULT_CHUNK,
     size: float = 1.0,
     max_std_dev: float = 3.0,
     display_mode: GaussianDisplayMode = GaussianDisplayMode.SPLAT,
     antialiased: bool = False,
-    pad_slack: float = 1.0,
     max_rows: Optional[int] = None,
 ) -> RenderResult:
     """Differentiable tiled render to [H, W, 3].
@@ -212,22 +190,17 @@ def render(
     ``opacity`` [N] in [0,1], optional ``sh`` [N,15,3].
     ``size``/``max_std_dev``/``display_mode`` implement the reference's
     GaussianTransform knobs (reference: src/buffer/gaussian_transform.rs).
-    ``pad_slack`` scales the tile-padding headroom of the streaming
-    schedule (worst case = one partial chunk per tile; the expectation is
-    half that). Values < 1 shrink every fragment-padded op — chiefly the
-    backward reorder sort — and tile truncation, if it ever fires, is
-    surfaced via ``overflow`` and zeroes the step's gradients, exactly
-    like fragment-capacity overflow.
+    ``max_fragments``/``max_rows`` are the static stream capacities (size
+    them with :func:`measure_max_fragments`/:func:`measure_max_rows`); a
+    stream that exceeds them is truncated, ``overflow`` is set and the
+    gradients are zeroed.
     """
     h, w_px = camera.height, camera.width
     tiles_x, tiles_y = num_tiles(w_px, h)
-    t_total = tiles_x * tiles_y
     n = means.shape[0]
 
     if max_fragments is None:
         max_fragments = default_max_fragments(n, tiles_x, tiles_y)
-    # Stream capacity must be whole chunks.
-    f_cap = -(-max_fragments // chunk) * chunk
 
     splats, rgb, opacity = project_and_color(
         means, cov3d_sigma6, base_color, opacity, camera,
@@ -239,9 +212,9 @@ def render(
 
     tiles, overflow = rasterize_splats(
         splats.xy, splats.depth, splats.conic, splats.extent, splats.mask,
-        rgb, opacity, tiles_x, tiles_y, f_cap, chunk, tuple(background),
-        cutoff_sq=float(max_std_dev) ** 2, mode=int(display_mode),
-        pad_slack=pad_slack, max_rows=max_rows,
+        rgb, opacity, tiles_x, tiles_y, int(max_fragments),
+        tuple(background), cutoff_sq=float(max_std_dev) ** 2,
+        mode=int(display_mode), max_rows=max_rows,
     )
     img = tiles_to_image(tiles, tiles_x, tiles_y, w_px, h)
     return RenderResult(
@@ -252,229 +225,102 @@ def render(
 
 
 def _bin_rasterize_impl(attr_cols, xy, extent, depth, mask_f,
-                        tile_y_offset, tiles_x, tiles_y, f_cap, chunk,
-                        bg, cutoff_sq, mode, pad_slack, r_cap):
-    """Bin + fused attribute fetch + forward rasterization.
+                        tile_y_offset, tiles_x, tiles_y, f_cap, bg,
+                        cutoff_sq, mode, r_cap):
+    """Bin + attribute fetch + forward blend.
 
-    ``attr_cols`` is attribute-major [9, N] (lanes = gaussians) so both
-    the forward fetch and the backward segment reduction work in
-    lane-friendly layouts end to end.
-    Returns ((tiles, tile_written, overflow), residuals-for-backward).
+    ``attr_cols`` is attribute-major [9, N]: x, y, conic (3), rgb, opacity.
+    Returns ((tiles, overflow), residuals-for-backward).
     """
-    t_total = tiles_x * tiles_y
-    group = DEFAULT_GROUP
-    grp = chunk * group
-    # Tile padding adds at most one partial chunk per nonempty tile, so
-    # pad_slack == 1 never truncates a stream that fit f_cap. Every
-    # fragment-padded op (the backward gid sort above all) costs
-    # proportional to this STATIC capacity while the EXPECTED padding is
-    # ~chunk/2 per tile, so callers may trade the worst case down
-    # (pad_slack < 1); truncation is detected (sched.truncated), folded
-    # into the overflow flag, and zeroes the step's gradients exactly
-    # like fragment overflow.
-    f_pad_cap = -(-(f_cap + int(t_total * chunk * pad_slack)) // grp) * grp
-    mask = mask_f > 0.5
-
-    stream, attrs_sorted, tab_t = bin_splats_attrs(
-        xy, extent, depth, mask, attr_cols, tiles_x, tiles_y, f_cap,
+    stream, attrs_sorted = bin_splats_attrs(
+        xy, extent, depth, mask_f > 0.5, attr_cols, tiles_x, tiles_y, f_cap,
         tile_y_offset, max_rows=r_cap, cutoff_sq=cutoff_sq,
         opacity_cull=mode != 1,
     )
-    sched = pad_schedule(stream, chunk, f_pad_cap)
-
-    # [16, MAT_COLS] sorted matrix: rows 0-1 TILE-LOCAL x/y (shifted by
-    # the owning tile's pixel origin so the kernels never touch tile
-    # coordinates), rows 2-8 attributes, row 9 the owning gaussian id
-    # (f32-exact below 2^24; the backward reorder key — rode the expand
-    # fetch + sort as an f32 payload), row 10 the owning tile id (the
-    # kernels' per-lane validity key; padding slots carry t_total from
-    # the binning, and the column tail is filled with t_total too so
-    # out-of-stream lanes never match a live tile), rows 11-15 pad.
-    # Columns padded so any window pair fl, fl+1 with fl <= f_cap // grp
-    # stays in bounds — the kernels read the stream IN PLACE through two
-    # overlapping auto-pipelined windows instead of repacking a padded
-    # copy (a vmapped-slice repack measured ~100 ms at bench shapes).
-    tile_sorted = stream.tile_id
-    x_local = attrs_sorted[0] - (
-        (tile_sorted % tiles_x) * TILE_SIZE
-    ).astype(jnp.float32)
-    y_local = attrs_sorted[1] - (
-        (tile_sorted // tiles_x) * TILE_SIZE
-    ).astype(jnp.float32)
-    mat_cols = (-(-f_cap // grp) + 2) * grp
-    mat = jnp.concatenate(
-        [
-            x_local[None],
-            y_local[None],
-            attrs_sorted[2:],
-            tile_sorted.astype(jnp.float32)[None],
-            jnp.zeros((ATTR_ROWS - attrs_sorted.shape[0] - 1, f_cap),
-                      jnp.float32),
-        ],
-        axis=0,
-    )
-    tail = jnp.zeros((ATTR_ROWS, mat_cols - f_cap), jnp.float32)
-    tail = tail.at[TILE_ROW].set(float(t_total))
-    mat = jnp.concatenate([mat, tail], axis=1)
-
-    # Per-block window coordinates: src_base is monotone nondecreasing
-    # with increments <= chunk (tile segments are contiguous in the
-    # sorted stream), so a group's blocks always fit inside windows
-    # [fl, fl+2) of width grp.
-    src_base = jnp.clip(sched.src.reshape(-1, chunk)[:, 0], 0, f_cap)
-    fl = (src_base[::group] // grp).astype(jnp.int32)
-    off = jnp.clip(
-        src_base - jnp.repeat(fl, group) * grp, 0, 2 * grp - chunk
-    ).astype(jnp.int32)
-
     tiles = rasterize_tiles_fwd(
-        mat, off, fl, sched.blk_flags, sched.live_blocks, chunk, t_total,
-        bg, cutoff_sq, mode, group,
+        attrs_sorted, stream.tile_start, stream.tile_end, tiles_x,
+        tiles_x * tiles_y, bg, cutoff_sq, mode, tile_y_offset,
     )
-    overflow = stream.overflow | sched.truncated
-    out = (tiles, sched.tile_written, overflow)
-    res = (mat, off, fl, sched.blk_flags, sched.live_blocks, tab_t,
-           stream.num_fragments, tiles, overflow, xy, extent,
-           depth, mask_f)
-    return out, res
+    res = (attrs_sorted, stream.gauss_id, stream.tile_start,
+           stream.tile_end, tiles, stream.overflow, xy, extent, depth,
+           mask_f, tile_y_offset)
+    return (tiles, stream.overflow), res
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(5, 6, 7, 8, 9, 10,
-                                                    11, 12, 13, 14))
+@functools.partial(jax.custom_vjp, nondiff_argnums=(6, 7, 8, 9, 10, 11, 12))
 def _bin_rasterize(attr_cols, xy, extent, depth, mask_f,
-                   tile_y_offset, tiles_x, tiles_y, f_cap, chunk,
-                   bg, cutoff_sq, mode, pad_slack, r_cap):
-    """Differentiable-in-``attr_cols`` binning + tiled rasterization.
+                   tile_y_offset, tiles_x, tiles_y, f_cap, bg, cutoff_sq,
+                   mode, r_cap):
+    """Differentiable-in-``attr_cols`` binning + tiled blend.
 
-    Forward: attributes ride the expansion kernel's one-hot MXU fetch and
-    the tile sort's payload lanes, and the rasterizer reads the sorted
-    stream in place through window pairs — no fragment-scale random
-    gather or repack. Backward: the hand-derived kernel emits per-block
-    gradients keyed by gaussian id; one payload sort + two Pallas one-hot
-    window kernels (ops/segreduce.py) reduce them to the [9, N] table —
-    replacing XLA's F-scale scatter-add (~350 ms) and the diff-of-cumsum
-    tail's stack/cumsum/boundary-gathers (~55 ms) at bench shapes.
+    Backward: the blend kernel replays each tile and writes every
+    fragment's attribute gradients once, in stream order; one
+    ``segment_sum`` by gaussian id reduces them to the [9, N] table.
     """
     out, _ = _bin_rasterize_impl(attr_cols, xy, extent, depth, mask_f,
-                                 tile_y_offset, tiles_x, tiles_y, f_cap,
-                                 chunk, bg, cutoff_sq, mode, pad_slack,
-                                 r_cap)
+                                 tile_y_offset, tiles_x, tiles_y, f_cap, bg,
+                                 cutoff_sq, mode, r_cap)
     return out
 
 
 def _bin_rasterize_fwd(attr_cols, xy, extent, depth, mask_f,
-                       tile_y_offset, tiles_x, tiles_y, f_cap, chunk,
-                       bg, cutoff_sq, mode, pad_slack, r_cap):
+                       tile_y_offset, tiles_x, tiles_y, f_cap, bg,
+                       cutoff_sq, mode, r_cap):
     return _bin_rasterize_impl(attr_cols, xy, extent, depth, mask_f,
-                               tile_y_offset, tiles_x, tiles_y, f_cap,
-                               chunk, bg, cutoff_sq, mode, pad_slack, r_cap)
+                               tile_y_offset, tiles_x, tiles_y, f_cap, bg,
+                               cutoff_sq, mode, r_cap)
 
 
-def _bin_rasterize_bwd(tile_y_offset, tiles_x, tiles_y, f_cap, chunk,
-                       bg, cutoff_sq, mode, pad_slack, r_cap, residuals,
-                       cots):
-    (mat, off, fl, blk_flags, live_blocks, tab_t,
-     num_frag, tiles_out, overflow, xy, extent, depth, mask_f) = residuals
-    d_tiles = cots[0]  # other outputs are non-differentiable
-    t_total = tiles_x * tiles_y
+def _bin_rasterize_bwd(tiles_x, tiles_y, f_cap, bg, cutoff_sq, mode, r_cap,
+                       residuals, cots):
+    (attrs_sorted, gauss_id, tile_start, tile_end, tiles_out, overflow,
+     xy, extent, depth, mask_f, tile_y_offset) = residuals
+    d_tiles = cots[0]  # the overflow flag is non-differentiable
+    n = xy.shape[0]
 
     dfrag = rasterize_tiles_bwd(
-        mat, off, fl, blk_flags, live_blocks,
-        tiles_out, d_tiles, chunk, t_total, bg, cutoff_sq, mode,
-        DEFAULT_GROUP,
-    )  # [16, F_pad]: rows 0-8 gradients, row 9 gid key (-1 invalid)
-
-    f_pad = dfrag.shape[1]
-    n = xy.shape[0]
-    slot = jnp.arange(f_pad, dtype=jnp.int32)
-    # Key build: invalid lanes (gid -1 on padding/dead blocks; NaN on the
-    # dynamic grid's never-written tail — NaN compares false, landing in
-    # the same branch) get keys past every real gaussian, so live lanes
-    # sort gaussian-major up front. Gradient rows ride UNMASKED: dead
-    # lanes sort behind every live fragment and can only reach the
-    # segment reduction's final partial block, whose kernel NaN-scrubs
-    # them (ops/segreduce.py) — this replaces ten XLA-side F_pad-scale
-    # masking passes with one. Stability is NOT needed: the reduction
-    # matches keys by equality, so only grouping matters.
-    key = jnp.where(dfrag[9] >= 0, dfrag[9].astype(jnp.int32), n + slot)
-    sorted_out = jax.lax.sort(
-        (key,) + tuple(dfrag[i] for i in range(9)),
-        num_keys=1,
-        is_stable=False,
-    )
-    # The sorted gradient columns feed the Pallas segment reduction as
-    # exact bf16 triples (ops/segreduce.split_grad_rows) with the keys as
-    # a separate f32 stream — no [16, F_pad] f32 repack.
-    dg_split = split_grad_rows(list(sorted_out[1:]))
-    keys_f = sorted_out[0].astype(jnp.float32)
-    from ..ops.expand import table_counts
-
-    n_live = jnp.sum(table_counts(tab_t) > 0).astype(jnp.int32)
-    gid_mono = gid_column_sorted(tab_t, n_live)
-    d_comp = segment_sums_sorted(dg_split, keys_f, gid_mono, num_frag)
-    d_full = uncompact_columns(d_comp, gid_mono, n)  # [16, N]
-    # On fragment-capacity overflow the stream is truncated; the equality
-    # match cannot misattribute (missing fragments just contribute
-    # nothing), but the truncated forward image makes the step's
-    # gradients an arbitrary subset — zero the table so an overflowing
-    # step trains on nothing (render/train.py surfaces the flag).
-    d_cols = jnp.where(overflow, 0.0, d_full[0:9])
-
+        attrs_sorted, tile_start, tile_end, tiles_out, d_tiles, tiles_x,
+        tiles_x * tiles_y, bg, cutoff_sq, mode, tile_y_offset,
+    )  # [9, F]; zero outside every tile range
+    d_cols = reduce_fragment_grads(dfrag, gauss_id, n)
+    # On fragment-capacity overflow the stream is truncated and the
+    # forward image misses fragments, so the step's gradients would be an
+    # arbitrary subset — zero the table so an overflowing step trains on
+    # nothing (render/train.py surfaces the flag).
+    d_cols = jnp.where(overflow, 0.0, d_cols)
     return (d_cols, jnp.zeros_like(xy), jnp.zeros_like(extent),
-            jnp.zeros_like(depth), jnp.zeros_like(mask_f))
+            jnp.zeros_like(depth), jnp.zeros_like(mask_f), None)
 
 
 _bin_rasterize.defvjp(_bin_rasterize_fwd, _bin_rasterize_bwd)
 
 
 def rasterize_splats(xy, depth, conic, extent, mask, rgb, opacity,
-                     tiles_x: int, tiles_y: int, f_cap: int, chunk: int,
+                     tiles_x: int, tiles_y: int, f_cap: int,
                      background: tuple, tile_y_offset=0,
-                     cutoff_sq: float = 9.0, mode: int = 0,
-                     pad_slack: float = 1.0, max_rows=None):
-    """Projected splats -> [tiles_x*tiles_y, 256, 4] tile blocks.
+                     cutoff_sq: float = 9.0, mode: int = 0, max_rows=None):
+    """Projected splats -> [tiles_x*tiles_y, 4, 256] tile blocks.
 
-    The shared middle of the pipeline (binning + gather + Pallas kernel),
-    reused by the single-device and strip-sharded renderers.
-    ``tile_y_offset`` selects a horizontal strip of the global tile grid.
+    The shared middle of the pipeline (binning + blend kernels), reused by
+    the single-device and strip-sharded renderers. ``tile_y_offset``
+    (int, may be traced) selects a horizontal strip of the global tile
+    grid; splat coordinates stay global.
     """
-    # All the differentiable per-gaussian attributes the blend kernels
-    # consume, attribute-major [9, N]; gradients flow back through
-    # _bin_rasterize's custom vjp (sort + Pallas one-hot segment
-    # reduction — no fragment-scale scatter-add).
     opac = opacity * mask  # culled gaussians contribute nothing
     attr_cols = jnp.concatenate(
         [xy.T, conic.T, rgb.T, opac[None, :]], axis=0
     )  # [9, N]
-
-    tiles, tile_written, overflow = _bin_rasterize(
+    return _bin_rasterize(
         attr_cols,
         jax.lax.stop_gradient(xy),
         jax.lax.stop_gradient(extent),
         jax.lax.stop_gradient(depth),
         mask.astype(jnp.float32),
-        int(tile_y_offset),
-        tiles_x, tiles_y, f_cap, chunk,
-        tuple(background), float(cutoff_sq), int(mode), float(pad_slack),
+        jnp.asarray(tile_y_offset, jnp.int32),
+        tiles_x, tiles_y, int(f_cap),
+        tuple(background), float(cutoff_sq), int(mode),
         None if max_rows is None else int(max_rows),
     )
-    # Empty tiles get no block (ops/binning.py), so their output blocks
-    # are never written by the kernel (uninitialized memory, possibly NaN);
-    # composite them to pure background here. jnp.where is a select, so the
-    # garbage never propagates — forward or backward (non-selected
-    # cotangents are dropped).
-    nonempty = tile_written
-    bg_block = jnp.concatenate(
-        [
-            jnp.full((1, 1, tiles.shape[2]), float(background[ch]),
-                     tiles.dtype)
-            for ch in range(3)
-        ]
-        + [jnp.ones((1, 1, tiles.shape[2]), tiles.dtype)],
-        axis=1,
-    )
-    tiles = jnp.where(nonempty[:, None, None], tiles, bg_block)
-    return tiles, overflow
 
 
 def render_gaussians(

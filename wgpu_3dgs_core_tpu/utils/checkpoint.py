@@ -2,7 +2,7 @@
 
 The reference's persistence layer is the file formats themselves (SURVEY.md
 §5 checkpoint/resume: PLY lossless, SPZ lossy). Those remain the
-interchange path; this module adds the TPU-scale piece the reference has no
+interchange path; this module adds the device-scale piece the reference has no
 analog for — saving a sharded SoA (plus arbitrary optimizer/training state
 pytrees) one file per shard, with a manifest, and restoring onto a possibly
 different mesh size.

@@ -2,7 +2,7 @@
 
 The reference does all format math in f32 with Rust cast/round semantics
 (`as u8` saturating truncation, `f32::round` half-away-from-zero). These
-helpers reproduce that bit-compatibly so the TPU build's format round-trips
+helpers reproduce that bit-compatibly so this build's format round-trips
 match the reference's numerics (see SURVEY.md §7.3 item 3).
 """
 

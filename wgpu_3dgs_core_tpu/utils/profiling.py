@@ -1,7 +1,7 @@
 """Tracing and profiling helpers.
 
 The reference's only observability is debug labels on every GPU object
-(SURVEY.md §5: label_for_components!, compute pass labels). The TPU-native
+(SURVEY.md §5: label_for_components!, compute pass labels). The JAX
 equivalents are jax.profiler traces + named scopes: every labeled construct
 here surfaces in a TensorBoard/Perfetto trace the way wgpu labels surface in
 GPU debuggers.
